@@ -3,17 +3,31 @@
 
     python3 chip_smoke.py            # from the repository root
 
-Builds the GF(256) CUDA kernel from the sources in the checkout (nvcc,
-sm_90a, into build/repro_torch/), holds it against its plain PyTorch
-version on the card, then drives the single-node store's main path at
-deployment size through the user's entry points — RS(10+2), 1536 MB
-functions, 200 MB fragments, spill journal on: PUT of >= 2 GB of seeded
-payloads made on the device (1 MB, 10 MB and 100 MB objects and one
-400 MB two-fragment object; a few as host bytes), GET of everything back,
-a degraded GET through parity after a slab is reclaimed, and a daemon
-kill + restart whose journal replay re-encodes through the kernel. Every
-phase asserts; any failure exits non-zero. Prints timing lines, one
-`kernels` JSON line and, last, `{"ok": true, "device": {...}}`.
+Builds the port's three CUDA kernels from the sources in the checkout
+(one nvcc per source, all started together; sm_90a, into
+build/repro_torch/) and drives its two paths through the user's entry
+points:
+
+- the store (phases 1-5): the GF(256) kernel against its plain PyTorch
+  version, then the single-node store at deployment size — RS(10+2),
+  1536 MB functions, 200 MB fragments, spill journal on: PUT of >= 2 GB
+  of seeded payloads made on the device (1 MB, 10 MB and 100 MB objects
+  and one 400 MB two-fragment object; a few as host bytes), GET of
+  everything back, a degraded GET through parity after a slab is
+  reclaimed, and a daemon kill + restart whose journal replay
+  re-encodes through the kernel;
+- serving (phases 6-8): the RMSNorm and paged decode-attention kernels
+  against their plain versions; Qwen3-1.7B at its published widths in
+  bf16 (weights from a seed) served by `ServeEngine` over the SMS-paged
+  KV cache, 16 sequences of 2048 prompt tokens, 64 new tokens each, with
+  the kernels' launch counts asserted; the kernel path held to the plain
+  contiguous-cache path (f32 tokens identical, bf16 teacher-forced
+  logits); and seq0's KV pages evicted through the store (RS-encoded by
+  the GF(256) kernel) and restored bit for bit, decoding on to the same
+  tokens as a run that never evicted.
+
+Every phase asserts; any failure exits non-zero. Prints timing lines,
+one `kernels` JSON line and, last, `{"ok": true, "device": {...}}`.
 
 Exits non-zero with no result where CUDA is unavailable or the package
 is not beside this script.
@@ -33,6 +47,8 @@ SEED = 20221
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
 # 32-bit integer ALU peak: 132 SMs x 64 INT32 lanes x 1.98 GHz boost
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
+F32_FLOPS_PER_S = 67e12          # fp32 outside the tensor cores (data sheet)
+BF16_FLOPS_PER_S = 989e12        # dense bf16 tensor cores (data sheet)
 
 
 def event_ms(fn, reps: int, warmup: int = 2, spin: bool = True) -> float:
@@ -72,11 +88,13 @@ def gf_ops(m: int, k: int, L: int) -> int:
     return k * (23 + 8 * m) * (-(-L // 4))
 
 
-def bound(nbytes: int, ops: int = 0, bytes_per_s: float = HBM_BYTES_PER_S):
+def bound(nbytes: int, ops: int = 0, bytes_per_s: float = HBM_BYTES_PER_S,
+          ops_per_s: float = INT32_OPS_PER_S):
     """Least time in ms for work that moves `nbytes` at `bytes_per_s` and
-    does `ops` int32 ops at the card's peak, and which of the two binds."""
+    does `ops` operations at `ops_per_s` (int32 ALU peak by default), and
+    which of the two binds."""
     t_bytes = nbytes / bytes_per_s * 1e3
-    t_ops = ops / INT32_OPS_PER_S * 1e3
+    t_ops = ops / ops_per_s * 1e3
     return max(t_bytes, t_ops), "operations" if t_ops > t_bytes else "bytes"
 
 
@@ -87,6 +105,456 @@ def gf_bound_ms(m: int, k: int, L: int):
     nbytes = (k + m) * L + m * k * 8 * 4
     ops = gf_ops(m, k, L)
     return (*bound(nbytes, ops), nbytes, ops)
+
+
+# ---- serving: phases 6-8 ---------------------------------------------------
+
+QWEN3 = "qwen3-1.7b"
+SLOTS, PROMPT, NEW_TOKENS, PAGE = 16, 2048, 64, 64
+MAX_LEN = 2176                   # 34 pages of 64: prompt + 64 new + slack
+F32_SLOTS, F32_PROMPT, F32_STEPS = 4, 1024, 8
+TF_STEPS = 16                    # teacher-forced bf16 steps
+RESUME_STEPS = 4                 # decode steps after the evict/restore
+PROFILE_STEPS = 3                # decode steps under torch.profiler
+LOGIT_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
+RMS_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+PA_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
+PA_CASES = [(1, 2, 4, 1, 1, 8), (2, 4, 8, 2, 2, 16), (3, 5, 8, 2, 3, 16),
+            (2, 8, 16, 4, 1, 32), (SLOTS, MAX_LEN // PAGE, PAGE, 8, 2, 128)]
+RMS_SHAPES = [(4, 128), (3, 7, 256), (1, 512), (300, 64),
+              (SLOTS, 1, 2048), (SLOTS, 1, 16, 128), (SLOTS, 1, 8, 128),
+              (SLOTS, PROMPT, 2048), (SLOTS, PROMPT, 16, 128),
+              (SLOTS, PROMPT, 8, 128)]
+
+
+def paged_case(dev, dtype, B, P, ps, K, G, hd, seed):
+    """Seeded inputs on the card: random page permutations, ragged lens
+    (the first sequence at one token, the last at the full pool)."""
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    tbl = np.stack([rng.permutation(P) for _ in range(B)]).astype(np.int32)
+    lens = rng.integers(1, P * ps + 1, B).astype(np.int32)
+    lens[0] = 1
+    lens[-1] = P * ps
+    return (randn(B, K * G, hd), randn(B, P, ps, K, hd),
+            randn(B, P, ps, K, hd), torch.from_numpy(tbl).to(dev),
+            torch.from_numpy(lens).to(dev))
+
+
+def kernel_checks(dev) -> dict:
+    """Phase 6: RMSNorm and paged decode attention against their plain
+    versions on the card, over the reference tests' sweeps and the main
+    path's shapes, f32 and bf16. Returns each kernel's max abs error."""
+    import torch
+    from repro_torch.kernels.paged_attention.ops import \
+        paged_decode_attention
+    from repro_torch.kernels.paged_attention.ref import \
+        paged_decode_attention_ref
+    from repro_torch.kernels.rmsnorm.ops import rms_norm_op
+    from repro_torch.kernels.rmsnorm.ref import rms_norm_ref
+    torch.backends.cuda.matmul.allow_tf32 = False
+    err = {}
+    for dname in ("float32", "bfloat16"):
+        dtype = getattr(torch, dname)
+        worst = 0.0
+        for i, shape in enumerate(RMS_SHAPES):
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(i)
+            x = torch.randn(shape, generator=gen, device=dev).to(dtype)
+            scale = (torch.randn(shape[-1:], generator=gen, device=dev)
+                     * 0.1 + 1.0).to(dtype)
+            got, want = rms_norm_op(x, scale), rms_norm_ref(x, scale)
+            torch.cuda.synchronize()
+            assert got.dtype == dtype and got.shape == x.shape
+            torch.testing.assert_close(got.float(), want.float(),
+                                       atol=RMS_TOL[dname],
+                                       rtol=RMS_TOL[dname])
+            worst = max(worst, float((got.float() - want.float()).abs()
+                                     .max()))
+        err[("rmsnorm", dname)] = worst
+        worst = 0.0
+        for i, case in enumerate(PA_CASES):
+            args = paged_case(dev, dtype, *case, seed=i)
+            got = paged_decode_attention(*args)
+            want = paged_decode_attention_ref(*args)
+            torch.cuda.synchronize()
+            assert got.dtype == dtype and torch.isfinite(got.float()).all()
+            torch.testing.assert_close(got.float(), want,
+                                       atol=PA_TOL[dname],
+                                       rtol=PA_TOL[dname])
+            worst = max(worst, float((got.float() - want).abs().max()))
+        err[("paged_decode_attention", dname)] = worst
+    print(f"phase 6 kernels vs plain on the card: rmsnorm over "
+          f"{len(RMS_SHAPES)} shapes, max_abs_err f32 "
+          f"{err[('rmsnorm', 'float32')]:.3e} (tol 1e-5), bf16 "
+          f"{err[('rmsnorm', 'bfloat16')]:.3e} (tol 2e-2); paged decode "
+          f"attention over {len(PA_CASES)} shapes (permuted tables, ragged"
+          f" lens), max_abs_err f32 "
+          f"{err[('paged_decode_attention', 'float32')]:.3e} (tol 2e-5), "
+          f"bf16 {err[('paged_decode_attention', 'bfloat16')]:.3e} "
+          f"(tol 3e-2)")
+    return {name: max(err[(name, "float32")], err[(name, "bfloat16")])
+            for name in ("rmsnorm", "paged_decode_attention")}
+
+
+def teacher_forced(model, params, prompts, tokens, max_len):
+    """Prefill `prompts`, then decode feeding `tokens[:, i]` at step i;
+    returns the (B, steps, V) f32 logits of the steps and the argmax of
+    the prefill."""
+    import torch
+    logits, cache = model.prefill(params, {"tokens": prompts},
+                                  max_len=max_len)
+    first = logits[:, -1].argmax(-1).to(torch.int32)
+    out = []
+    tok = first[:, None]
+    for i in range(tokens.shape[1]):
+        lg, cache = model.decode_step(params, {"token": tok}, cache)
+        out.append(lg[:, -1].float())
+        tok = tokens[:, i:i + 1]
+    del cache
+    return torch.stack(out, 1), first
+
+
+def greedy(model, params, prompts, steps, max_len):
+    """Prefill + `steps` greedy decode steps: (tokens, f32 logits)."""
+    import torch
+    logits, cache = model.prefill(params, {"tokens": prompts},
+                                  max_len=max_len)
+    tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+    toks, lgs = [], []
+    for _ in range(steps):
+        lg, cache = model.decode_step(params, {"token": tok}, cache)
+        lgs.append(lg[:, -1].float())
+        tok = lg[:, -1].argmax(-1).to(torch.int32)[:, None]
+        toks.append(tok[:, 0])
+    del cache
+    return torch.stack(toks, 1), torch.stack(lgs, 1)
+
+
+def prefill_flops(cfg, B: int, S: int) -> int:
+    """Matrix-product flops of one prefill: every layer's projections and
+    MLP for B*S tokens, causal attention (QK and PV over S(S+1)/2 pairs),
+    and the logits of the last token."""
+    d, H, K, hd, ff = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+                       cfg.head_dim, cfg.d_ff)
+    per_tok = 2 * (d * H * hd + 2 * d * K * hd + H * hd * d + 3 * d * ff)
+    attn = 2 * 2 * H * hd * (S * (S + 1) // 2)
+    return cfg.num_layers * B * (S * per_tok + attn) \
+        + 2 * B * cfg.vocab_size * d
+
+
+def kv_bytes(cfg, B: int, tokens: int, elem: int = 2) -> int:
+    """Bytes of the K and V rows of `tokens` positions of B sequences."""
+    return 2 * B * tokens * cfg.num_layers * cfg.num_kv_heads \
+        * cfg.head_dim * elem
+
+
+def serve(dev, work, card) -> dict:
+    """Phases 7 and 8: Qwen3-1.7B served at full width over the SMS-paged
+    KV cache, the plain-path comparisons, KV eviction through the store,
+    and the new kernels' timings. Returns launches and timings."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.configs import get_config
+    from repro_torch.core import InfiniStore, StoreConfig
+    from repro_torch.kernels.paged_attention import kernel as pa_kernel
+    from repro_torch.kernels.paged_attention.ref import \
+        paged_decode_attention_ref
+    from repro_torch.kernels.rmsnorm import kernel as rms_kernel
+    from repro_torch.kernels.rmsnorm.ref import rms_norm_ref
+    from repro_torch.kernels.rs_gf256 import kernel as gf_kernel
+    from repro_torch.models import build_model
+    from repro_torch.models.transformer import _gather_pages, init_params
+    from repro_torch.serving import ServeConfig, ServeEngine
+
+    cfg = get_config(QWEN3)
+    assert (cfg.num_layers, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+            cfg.head_dim, cfg.d_ff, cfg.vocab_size, cfg.qk_norm,
+            cfg.tie_embeddings, cfg.dtype) == (
+        28, 2048, 16, 8, 128, 6144, 151936, True, True, "bfloat16")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    t = time.perf_counter()
+    params = init_params(cfg, gen)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.values())
+    weight_bytes = sum(p.numel() * p.element_size() for p in params.values())
+    print(f"phase 7 model: {QWEN3} at published widths, {n_params} params "
+          f"({weight_bytes} bytes bf16) from seed {SEED} on the card in "
+          f"{time.perf_counter() - t:.3f} s")
+
+    store = InfiniStore(StoreConfig(spill_dir=str(work / "spill-kv")),
+                        seed=SEED)
+    scfg = ServeConfig(batch_slots=SLOTS, max_len=MAX_LEN, page_size=PAGE)
+    eng = ServeEngine(cfg, scfg, params=params, device=dev, store=store)
+    kv = eng.kv
+    pool_bytes = kv.k_pool.numel() * kv.k_pool.element_size()
+    assert kv.page_bytes == 28 * 64 * 8 * 128 * 2 * 2 == 7_340_032
+    rng = np.random.default_rng(SEED)
+    prompts = rng.integers(0, cfg.vocab_size, (SLOTS, PROMPT)).astype(
+        np.int32)
+
+    # ---- phase 7: the main path ----------------------------------------
+    torch.cuda.synchronize()
+    rms_kernel.launches = pa_kernel.launches = gf_kernel.launches = 0
+    t = time.perf_counter()
+    out = eng.generate(prompts, NEW_TOKENS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = {"rmsnorm": rms_kernel.launches,
+                "paged_decode_attention": pa_kernel.launches,
+                "gf256_matmul_bitsliced": gf_kernel.launches}
+    per_step_rms = 4 * cfg.num_layers + 1
+    assert launches["paged_decode_attention"] == \
+        cfg.num_layers * NEW_TOKENS, launches
+    assert launches["rmsnorm"] == per_step_rms * (NEW_TOKENS + 1), launches
+    assert launches["gf256_matmul_bitsliced"] == 0, launches
+    assert out.shape == (SLOTS, NEW_TOKENS) and out.dtype == np.int32
+    assert ((out >= 0) & (out < cfg.vocab_size)).all()
+    length = PROMPT + NEW_TOKENS
+    st = eng.stats
+    print(f"phase 7 serve: {SLOTS} x {PROMPT}-token prompts, {NEW_TOKENS} "
+          f"new tokens each in {wall:.3f} s (KV pools 2 x {pool_bytes} "
+          f"bytes, {kv.stats.pages_allocated} pages of {kv.page_bytes} "
+          f"bytes); launches {json.dumps(launches)} = {cfg.num_layers} paged "
+          f"attention per decode step, {per_step_rms} RMSNorm per step and "
+          f"in the prefill; first tokens {out[0, :8].tolist()}")
+
+    # ---- phase 7: the kernel path against the plain contiguous path ----
+    torch.backends.cuda.matmul.allow_tf32 = False
+    paged_m = build_model(cfg, kv_layout="paged", page_size=PAGE)
+    plain_m = build_model(cfg, kv_layout="contiguous")
+    toks = torch.from_numpy(out[:, :TF_STEPS]).to(dev)
+    dev_prompts = torch.from_numpy(prompts).to(dev)
+    lg_k, first_k = teacher_forced(paged_m, params, dev_prompts, toks,
+                                   MAX_LEN)
+    lg_p, first_p = teacher_forced(plain_m, params, dev_prompts, toks,
+                                   PROMPT + TF_STEPS)
+    assert torch.isfinite(lg_k).all() and torch.isfinite(lg_p).all()
+    # the kernel path re-run outside the engine gives the engine's tokens
+    assert torch.equal(lg_k.argmax(-1).to(torch.int32).cpu(),
+                       torch.from_numpy(out[:, :TF_STEPS]))
+    bf16_diff = float((lg_k - lg_p).abs().max())
+    agree = float((lg_k.argmax(-1) == lg_p.argmax(-1)).float().mean())
+    print(f"phase 7 bf16 check: kernel path vs plain contiguous path "
+          f"(decode_attention_grouped, no paged kernel), teacher-forced on "
+          f"the engine's tokens, {SLOTS} x {TF_STEPS} steps: largest logit "
+          f"difference {bf16_diff:.4e} (tol {LOGIT_TOL['bfloat16']}), "
+          f"argmax agreement {agree:.4f}; logits std "
+          f"{float(lg_p.std()):.4f}")
+    assert bf16_diff <= LOGIT_TOL["bfloat16"], bf16_diff
+    del lg_k, lg_p
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params32 = {k: v.float() for k, v in params.items()}
+    p32 = dev_prompts[:F32_SLOTS, :F32_PROMPT]
+    eng32 = ServeEngine(cfg32, ServeConfig(
+        batch_slots=F32_SLOTS, max_len=F32_PROMPT + 2 * PAGE,
+        page_size=PAGE), params=params32, device=dev)
+    out32 = eng32.generate(p32.cpu().numpy(), F32_STEPS)
+    del eng32
+    tok_k, lg32_k = greedy(build_model(cfg32, kv_layout="paged",
+                                       page_size=PAGE), params32, p32,
+                           F32_STEPS, F32_PROMPT + 2 * PAGE)
+    tok_p, lg32_p = greedy(build_model(cfg32, kv_layout="contiguous"),
+                           params32, p32, F32_STEPS, F32_PROMPT + F32_STEPS)
+    f32_diff = float((lg32_k - lg32_p).abs().max())
+    print(f"phase 7 f32 check: {QWEN3} at full width in f32, "
+          f"{F32_SLOTS} x {F32_PROMPT}-token prompts, {F32_STEPS} greedy "
+          f"steps: engine (paged kernel) tokens {out32[0].tolist()}..., "
+          f"plain contiguous path equal: "
+          f"{bool(torch.equal(tok_k, tok_p))}; largest logit difference "
+          f"{f32_diff:.4e} (tol {LOGIT_TOL['float32']})")
+    assert np.array_equal(out32, tok_k.cpu().numpy())
+    assert torch.equal(tok_k, tok_p), (tok_k, tok_p)
+    assert f32_diff <= LOGIT_TOL["float32"], f32_diff
+    del params32, lg32_k, lg32_p
+    torch.cuda.empty_cache()
+
+    # ---- phase 8: KV eviction through the store ------------------------
+    seq0 = sorted((j, key) for key, (b, j, _, _) in kv.pages.items()
+                  if b == 0)
+    before = {key: kv.page_payload(0, kv.pages[key][2]).clone()
+              for _, key in seq0}
+    k_ref, v_ref = kv.k_pool.clone(), kv.v_pool.clone()
+    ref_cache = {"k": k_ref, "v": v_ref,
+                 "block_table": torch.tensor(kv.table, device=dev),
+                 "len": torch.tensor(length, dtype=torch.int32, device=dev)}
+    last = torch.from_numpy(out[:, -1:]).to(dev)
+    ref_toks, _ = decode_on(eng, ref_cache, last, RESUME_STEPS)
+    del ref_cache, k_ref, v_ref
+    gf_kernel.launches = 0
+    t = time.perf_counter()
+    for _, key in seq0:
+        kv.evict_page_to_cos(key)
+    assert store.flush_writeback(timeout=600.0)
+    torch.cuda.synchronize()
+    evict_s = time.perf_counter() - t
+    assert kv.stats.pages_evicted_to_cos == len(seq0) == -(-length // PAGE)
+    assert not any(b == 0 for b, _, _, _ in kv.pages.values())
+    t = time.perf_counter()
+    restored = eng.resume("seq0", 0)
+    torch.cuda.synchronize()
+    resume_s = time.perf_counter() - t
+    gf_evict = gf_kernel.launches
+    assert restored == len(seq0) and gf_evict >= len(seq0), gf_evict
+    for _, key in seq0:
+        assert torch.equal(kv.page_payload(0, kv.pages[key][2]),
+                           before[key]), key
+    got_toks, _ = decode_on(eng, kv.device_cache(length), last,
+                            RESUME_STEPS)
+    assert torch.equal(got_toks, ref_toks), (got_toks, ref_toks)
+    evicted = len(seq0) * kv.page_bytes
+    print(f"phase 8 evict/resume: seq0's {len(seq0)} pages "
+          f"({evicted} bytes, {kv.page_bytes} each) put into "
+          f"InfiniStore(device='cuda') in {evict_s:.3f} s and restored in "
+          f"{resume_s:.3f} s bit-identical; {RESUME_STEPS} decode steps on "
+          f"from them == a run that never evicted; GF(256) launches "
+          f"{gf_evict}")
+    del before
+    assert store.close()
+
+    # ---- where a decode step's time goes (torch.profiler) --------------
+    from torch.profiler import ProfilerActivity, profile
+    decode_on(eng, kv.device_cache(length), last, 1)         # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        decode_on(eng, kv.device_cache(length), last, PROFILE_STEPS)
+        torch.cuda.synchronize()
+        window = time.perf_counter() - t
+    kernels = [e for e in prof.key_averages()
+               if getattr(e, "device_type", None) is not None
+               and str(e.device_type).endswith("CUDA")]
+    dev_us = sum(getattr(e, "self_device_time_total", 0.0) for e in kernels)
+    n_kernels = sum(e.count for e in kernels)
+    steps_ms = sorted(x * 1e3 for x in st.step_seconds)
+    median = steps_ms[len(steps_ms) // 2]
+    if dev_us > 0:
+        per_step = dev_us / 1e3 / PROFILE_STEPS
+        top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]
+        top = "; ".join(
+            f"{e.key[:60]} "
+            f"{e.self_device_time_total / 1e3 / PROFILE_STEPS:.3f} ms "
+            f"x{e.count // PROFILE_STEPS}" for e in top)
+        print(f"decode step profile ({PROFILE_STEPS} steps under "
+              f"torch.profiler, {window * 1e3 / PROFILE_STEPS:.3f} ms per "
+              f"step there): device busy {per_step:.3f} ms per step over "
+              f"{n_kernels // PROFILE_STEPS} device operations; against "
+              f"the unprofiled median step {median:.3f} ms the device is "
+              f"idle {100 * (1 - per_step / median):.2f}%; top: {top} | "
+              f"{card}")
+    else:
+        print("decode step profile: torch.profiler saw no device time "
+              "(device busy share not measured)")
+
+    # ---- timing --------------------------------------------------------
+    prefill_tps = SLOTS * PROMPT / st.prefill_seconds
+    flops = prefill_flops(cfg, SLOTS, PROMPT)
+    pre_b, pre_by = bound(weight_bytes + kv_bytes(cfg, SLOTS, PROMPT),
+                          flops, ops_per_s=BF16_FLOPS_PER_S)
+    print(f"prefill: {SLOTS} x {PROMPT} tokens in {st.prefill_seconds:.3f} "
+          f"s = {prefill_tps:.1f} tokens/s | bound {pre_b:.3f} ms by "
+          f"{pre_by} ({flops} flops at the bf16 peak) = "
+          f"{SLOTS * PROMPT / (pre_b / 1e3):.1f} tokens/s; "
+          f"{100 * pre_b / 1e3 / st.prefill_seconds:.2f}% of it | {card}")
+    step_bounds = [bound(weight_bytes + kv_bytes(cfg, SLOTS, PROMPT + i + 1))
+                   [0] for i in range(NEW_TOKENS)]
+    decode_tps = SLOTS * NEW_TOKENS / st.decode_seconds
+    bound_tps = SLOTS * NEW_TOKENS / (sum(step_bounds) / 1e3)
+    print(f"decode: {SLOTS * NEW_TOKENS} tokens in {st.decode_seconds:.3f} "
+          f"s = {decode_tps:.1f} tokens/s; step median "
+          f"{steps_ms[len(steps_ms) // 2]:.3f} ms, max {steps_ms[-1]:.3f} "
+          f"ms over {len(steps_ms)} | bound {bound_tps:.1f} tokens/s "
+          f"(weights {weight_bytes} bytes + valid KV per step at 3.35 TB/s;"
+          f" step bound {step_bounds[0]:.3f}-{step_bounds[-1]:.3f} ms); "
+          f"{100 * decode_tps / bound_tps:.2f}% of it | {card}")
+
+    timing = {}
+    # paged attention at one layer's main-path shape, final length
+    q = torch.randn((SLOTS, cfg.num_heads, cfg.head_dim), device=dev,
+                    dtype=torch.bfloat16)
+    kc, vc = kv.k_pool[0], kv.v_pool[0]
+    table = torch.tensor(kv.table, device=dev)
+    lens = torch.full((SLOTS,), length, dtype=torch.int32, device=dev)
+    B, P, ps, K, hd = kc.shape
+    pa_bytes = 2 * q.numel() * 2 + kv_bytes(cfg, SLOTS, length) \
+        // cfg.num_layers + table.numel() * 4 + lens.numel() * 4
+    pa_flops = 4 * SLOTS * cfg.num_heads * cfg.head_dim * length
+    pos = torch.arange(P * ps, device=dev)
+    mask = (pos[None, :] < lens[:, None])[:, None, None, :]
+
+    def sdpa():
+        kf = _gather_pages(kc, table).transpose(1, 2)      # (B, K, T, hd)
+        vf = _gather_pages(vc, table).transpose(1, 2)
+        return F.scaled_dot_product_attention(
+            q[:, :, None], kf, vf, attn_mask=mask, enable_gqa=True)
+
+    ms = event_ms(lambda: pa_kernel.paged_decode_attention_cuda(
+        q, kc, vc, table, lens), reps=50)
+    plain = event_ms(lambda: paged_decode_attention_ref(q, kc, vc, table,
+                                                        lens), reps=5)
+    lib_ms = event_ms(sdpa, reps=10)
+    b_ms, by = bound(pa_bytes, pa_flops, ops_per_s=F32_FLOPS_PER_S)
+    timing["paged_decode_attention"] = dict(ms=ms, plain_ms=plain,
+                                            bound_ms=b_ms, bound_by=by,
+                                            library_ms=lib_ms)
+    print(f"kernel paged_decode_attention (B={B}, H={cfg.num_heads}, "
+          f"K={K}, hd={hd}, {P} pages of {ps}, lens {length}, bf16): "
+          f"{ms * 1e3:.1f} us | bound {b_ms * 1e3:.1f} us by {by} "
+          f"({pa_bytes} bytes, {pa_flops} flops) | plain {plain * 1e3:.1f} "
+          f"us | _gather_pages + sdpa(enable_gqa) {lib_ms * 1e3:.1f} us | "
+          f"{card}")
+
+    # RMSNorm at its three main-path shapes; the prefill's ln is the one
+    # the kernels line carries
+    for shape, label in (((SLOTS, PROMPT, cfg.d_model), "prefill ln"),
+                         ((SLOTS, PROMPT, cfg.num_heads, cfg.head_dim),
+                          "prefill q_norm"),
+                         ((SLOTS, 1, cfg.d_model), "decode ln")):
+        x = torch.randn(shape, device=dev, dtype=torch.bfloat16)
+        w = params["final_norm"]
+        if shape[-1] != cfg.d_model:
+            w = params["layers/q_norm"][0]
+        ms = event_ms(lambda: rms_kernel.rms_norm_cuda(x, w, cfg.rms_eps),
+                      reps=50)
+        plain = event_ms(lambda: rms_norm_ref(x, w, cfg.rms_eps), reps=10)
+        lib_ms = event_ms(lambda: F.rms_norm(x, (shape[-1],), w,
+                                             cfg.rms_eps), reps=10)
+        nbytes = 2 * x.numel() * 2 + w.numel() * 2
+        b_ms, by = bound(nbytes, 3 * x.numel(), ops_per_s=F32_FLOPS_PER_S)
+        if label == "prefill ln":
+            timing["rmsnorm"] = dict(ms=ms, plain_ms=plain, bound_ms=b_ms,
+                                     bound_by=by, library_ms=lib_ms)
+        print(f"kernel rmsnorm {label} {shape} bf16: {ms * 1e3:.2f} us | "
+              f"bound {b_ms * 1e3:.2f} us by {by} ({nbytes} bytes) | plain "
+              f"{plain * 1e3:.2f} us | F.rms_norm {lib_ms * 1e3:.2f} us | "
+              f"{card}")
+    return {"launches": launches, "timing": timing,
+            "gf_evict_launches": gf_evict}
+
+
+def decode_on(eng, cache, tok, steps):
+    """`steps` greedy decode steps of the engine's model from `cache`
+    (updated in place); returns (tokens (B, steps), last cache)."""
+    import torch
+    toks = []
+    for _ in range(steps):
+        tok, cache = eng._decode_fn(eng.params, {"token": tok}, cache)
+        toks.append(tok)
+        tok = tok[:, None]
+    return torch.stack(toks, 1), cache
 
 
 def main() -> int:
@@ -117,10 +585,14 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]} device {kind}")
 
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.paged_attention import kernel as pa_kernel
+    from repro_torch.kernels.rmsnorm import kernel as rms_kernel
     t0 = time.perf_counter()
-    lib = kernel.build()
-    print(f"build: {lib.relative_to(ROOT)} in "
-          f"{time.perf_counter() - t0:.3f} s")
+    libs = _build.build_many([kernel.SOURCE, rms_kernel.SOURCE,
+                              pa_kernel.SOURCE])
+    print(f"build: {', '.join(str(lib.relative_to(ROOT)) for lib in libs)}"
+          f" in {time.perf_counter() - t0:.3f} s (in parallel)")
 
     work = ROOT / "build" / "repro_torch" / "smoke"
     shutil.rmtree(work, ignore_errors=True)
@@ -368,6 +840,12 @@ def main() -> int:
           f" | {card}")
     print(f"replay: {replay_s:.3f} s for {replay_mb:.1f} MB | {card}")
     print("launches per phase: " + json.dumps(counts))
+    del objects, values, frag
+    torch.cuda.empty_cache()
+
+    # ---- phases 6-8: serving -------------------------------------------
+    checks = kernel_checks(dev)
+    serving = serve(dev, work, card)
     shutil.rmtree(work, ignore_errors=True)
 
     enc = timing["encode"]
@@ -377,14 +855,27 @@ def main() -> int:
         "source": "src/repro_torch/kernels/rs_gf256/csrc/gf256_matmul.cu",
         "replaces": "src/repro/kernels/rs_gf256/kernel.py:58",
         "launches": counts["put"] + counts["get"]
-        + counts["degraded_get"] + counts["replay"],
+        + counts["degraded_get"] + counts["replay"]
+        + serving["gf_evict_launches"],
         "max_abs_err": max_err,
         "ms": enc["ms"],
         "plain_ms": enc["plain_ms"],
         "bound_ms": enc["bound_ms"],
         "bound_by": enc["bound_by"],
         "library_ms": None,
-    }]}))
+    }] + [dict(
+        name=name, route="cuda", source=source, replaces=replaces,
+        launches=serving["launches"][name],
+        max_abs_err=checks[name],
+        **{key: serving["timing"][name][key] for key in (
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
+        for name, source, replaces in (
+            ("rmsnorm", "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu",
+             "src/repro/kernels/rmsnorm/kernel.py:18"),
+            ("paged_decode_attention",
+             "src/repro_torch/kernels/paged_attention/csrc/"
+             "paged_attention.cu",
+             "src/repro/kernels/paged_attention/kernel.py:26"))]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))

@@ -5,9 +5,9 @@ Replaces the JAX package's `_rs_bitsliced_kernel`; the arithmetic and
 the design are described at the top of `csrc/gf256_matmul.cu`.
 
 The source is compiled with `nvcc` for `sm_90a` into a shared library
-with a plain C entry point (built at first use under
-`build/repro_torch/`, keyed by a hash of the source) and called through
-`ctypes` on PyTorch's current stream. Importing this module builds
+with a plain C entry point (built at first use by `kernels/_build.py`
+under `build/repro_torch/`, keyed by a hash of the source) and called
+through `ctypes` on PyTorch's current stream. Importing this module builds
 nothing; a failed build raises — there is no fallback to the plain
 version. `launches` counts the kernel launches this process made.
 
@@ -18,10 +18,6 @@ G's bytes, so a caller passes only G.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 import threading
 from collections import OrderedDict
 from pathlib import Path
@@ -29,12 +25,10 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from repro_torch.kernels import _build
 from repro_torch.kernels.rs_gf256.ref import gf_coeff_planes
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "gf256_matmul.cu"
-BUILD_DIR = Path(__file__).resolve().parents[4] / "build" / "repro_torch"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 MAX_DIM = 255                    # m, k bound (RS over GF(256): k+p <= 256)
 
 _LOW_BITS = 0x01010101           # replicates a plane byte into a word
@@ -46,33 +40,10 @@ _lib = None
 _planes_cache: "OrderedDict[tuple, torch.Tensor]" = OrderedDict()
 
 
-def _nvcc() -> str:
-    nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(nvcc):
-        raise RuntimeError("nvcc not found: the GF(256) CUDA kernel needs "
-                           "the CUDA toolkit (sm_90a) to build")
-    return nvcc
-
-
 def build() -> Path:
     """Compile the kernel's shared library if this source's build is
-    missing; returns its path. The compiler's resource report
-    (`-Xptxas -v`) is kept beside the library as `<name>.log`."""
-    tag = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:16]
-    lib = BUILD_DIR / f"gf256_matmul-{tag}.so"
-    if lib.exists():
-        return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-    res = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                         capture_output=True, text=True)
-    if res.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({res.returncode}) on {SOURCE}:\n"
-                           f"{res.stderr}{res.stdout}")
-    lib.with_suffix(".log").write_text(res.stderr + res.stdout)
-    os.replace(tmp, lib)
-    return lib
+    missing (`kernels/_build.py`); returns its path."""
+    return _build.build(SOURCE)
 
 
 def _load():

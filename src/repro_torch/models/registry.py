@@ -1,0 +1,88 @@
+"""Uniform model API: `build_model(cfg)` returns a `Model` whose methods
+take and return plain dicts of tensors, so the serving layer never
+branches on family.
+
+The transformer families (dense, vlm, audio) are ported. The ssm
+(RWKV6) and hybrid (RG-LRU) families raise `NotImplementedError` here,
+the MoE FFN and the training loss when called: they come with slice F.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, Optional
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import transformer
+from repro_torch.models.transformer import CacheSpec
+
+SLICE_F = "not ported yet (slice F, training and the remaining model " \
+          "families)"
+
+
+@dataclass(frozen=True)
+class Model:
+    cfg: ModelConfig
+    init_params: Callable[[torch.Generator], Dict[str, torch.Tensor]]
+    abstract_params: Callable[[], Dict[str, torch.Tensor]]
+    loss_fn: Callable[..., Any]          # (params, batch) -> (loss, metrics)
+    forward: Callable[..., Any]          # (params, batch) -> (logits, aux)
+    prefill: Callable[..., Any]          # (params, batch) -> (logits, cache)
+    # (params, batch, cache) -> (logits, cache)
+    decode_step: Callable[..., Any]
+    init_cache: Callable[..., Dict]      # (batch_size, max_len) -> cache
+
+    @property
+    def name(self) -> str:
+        return self.cfg.name
+
+    def param_count(self, params: Optional[Dict] = None) -> int:
+        tree = params if params is not None else self.abstract_params()
+        return sum(int(p.numel()) for p in tree.values())
+
+
+def _loss_fn(cfg: ModelConfig):
+    def loss_fn(params, batch):
+        raise NotImplementedError(f"{cfg.name}: the training loss is "
+                                  f"{SLICE_F}")
+    return loss_fn
+
+
+def build_model(cfg: ModelConfig, *, kv_layout: str = "paged",
+                page_size: int = 256, attn_impl: str = "masked") -> Model:
+    if cfg.family in ("ssm", "hybrid"):
+        raise NotImplementedError(f"{cfg.name}: the {cfg.family} family is "
+                                  f"{SLICE_F}")
+    # dense / moe / vlm / audio -> transformer (whose MoE FFN raises)
+
+    def spec(max_len):
+        return CacheSpec(layout=kv_layout, max_len=max_len,
+                         page_size=min(page_size, max_len))
+
+    def prefill(p, b, max_len=None):
+        n = max_len if max_len else b["tokens"].shape[1]
+        return transformer.prefill(cfg, p, b, spec=spec(n),
+                                   attn_impl=attn_impl)
+
+    return Model(
+        cfg=cfg,
+        init_params=lambda gen: transformer.init_params(cfg, gen),
+        abstract_params=lambda: transformer.abstract_params(cfg),
+        loss_fn=_loss_fn(cfg),
+        forward=lambda p, b: transformer.forward(cfg, p, b,
+                                                 attn_impl=attn_impl),
+        prefill=prefill,
+        decode_step=lambda p, b, c: transformer.decode_step(
+            cfg, p, b, c, spec=_infer_spec(cfg, c, kv_layout)),
+        init_cache=lambda bs, max_len, device="cuda": transformer.init_cache(
+            cfg, bs, spec(max_len), device=device),
+    )
+
+
+def _infer_spec(cfg: ModelConfig, cache: Dict, kv_layout: str) -> CacheSpec:
+    k = cache["k"]
+    if "block_table" in cache:
+        _, _, P, ps, _, _ = k.shape
+        return CacheSpec(layout="paged", max_len=P * ps, page_size=ps)
+    return CacheSpec(layout="contiguous", max_len=k.shape[2])

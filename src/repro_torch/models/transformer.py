@@ -1,0 +1,411 @@
+"""Decoder-only transformer covering the dense / vlm / audio families, on
+torch tensors.
+
+The same model as the JAX package's `models/transformer.py`: the same
+flat parameter dict (`"embed"`, `"layers/wq"`, ... with a leading layer
+axis on layer parameters), the same layouts and the same caches. What
+differs is PyTorch idiom: layers run in a Python loop, caches are
+updated in place, and there is no mesh (one device; sharding comes with
+training). The MoE FFN and the training loss are not ported yet.
+
+Decode over a paged cache on the card runs the paged decode-attention
+kernel straight on the pool (`decode_step`); on the CPU it keeps the
+reference's gather into logical order followed by grouped decode
+attention, so the CPU tests match the reference's model.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig, padded_vocab
+from repro_torch.kernels.paged_attention.ops import paged_decode_attention
+from repro_torch.models import layers as L
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _dtype(cfg: ModelConfig) -> torch.dtype:
+    return DTYPES[cfg.dtype]
+
+
+# --------------------------------------------------------------------------
+# Parameter construction
+# --------------------------------------------------------------------------
+
+def param_specs(cfg: ModelConfig) -> Dict[str, Tuple[Tuple[int, ...], Tuple]]:
+    """name -> (shape, logical_axes). Layer params carry a leading L dim.
+    Vocab dims are padded (configs.base.padded_vocab); pad logits are
+    masked in output_logits."""
+    d, H, K, hd, ff, V, nl = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+                              cfg.head_dim, cfg.d_ff,
+                              padded_vocab(cfg.vocab_size), cfg.num_layers)
+    s: Dict[str, Tuple[Tuple[int, ...], Tuple]] = {}
+    s["embed"] = ((V, d), ("vocab", "embed"))
+    if not cfg.tie_embeddings:
+        if cfg.frontend.kind == "audio" and cfg.frontend.num_codebooks > 1:
+            s["head"] = ((cfg.frontend.num_codebooks, V, d),
+                         (None, "vocab", "embed"))
+        else:
+            s["head"] = ((V, d), ("vocab", "embed"))
+    s["final_norm"] = ((d,), (None,))
+    if cfg.frontend.kind == "vlm":
+        s["patch_proj"] = ((cfg.frontend.patch_embed_dim, d),
+                           (None, "embed"))
+
+    def lyr(name, shape, axes):
+        s[f"layers/{name}"] = ((nl,) + shape, ("layers",) + axes)
+
+    lyr("ln1", (d,), (None,))
+    lyr("ln2", (d,), (None,))
+    lyr("wq", (d, H, hd), ("embed", "heads", None))
+    lyr("wk", (d, K, hd), ("embed", "kv_heads", "head_dim"))
+    lyr("wv", (d, K, hd), ("embed", "kv_heads", "head_dim"))
+    lyr("wo", (H, hd, d), ("heads", None, "embed"))
+    if cfg.qkv_bias:
+        lyr("bq", (H, hd), ("heads", None))
+        lyr("bk", (K, hd), ("kv_heads", "head_dim"))
+        lyr("bv", (K, hd), ("kv_heads", "head_dim"))
+    if cfg.qk_norm:
+        lyr("q_norm", (hd,), (None,))
+        lyr("k_norm", (hd,), (None,))
+    if cfg.moe is None:
+        if cfg.mlp_glu:
+            lyr("w_gate", (d, ff), ("embed", "ff"))
+        lyr("w_up", (d, ff), ("embed", "ff"))
+        lyr("w_down", (ff, d), ("ff", "embed"))
+    else:
+        m = cfg.moe
+        lyr("router", (d, m.num_experts), ("embed", "experts"))
+        lyr("we_gate", (m.num_experts, d, m.d_expert),
+            ("experts", "embed", "expert_ff"))
+        lyr("we_up", (m.num_experts, d, m.d_expert),
+            ("experts", "embed", "expert_ff"))
+        lyr("we_down", (m.num_experts, m.d_expert, d),
+            ("experts", "expert_ff", "embed"))
+        if m.num_shared_experts:
+            lyr("ws_gate", (d, m.d_shared), ("embed", "ff"))
+            lyr("ws_up", (d, m.d_shared), ("embed", "ff"))
+            lyr("ws_down", (m.d_shared, d), ("ff", "embed"))
+            lyr("shared_gate", (d,), ("embed",))
+    return s
+
+
+def init_params(cfg: ModelConfig,
+                generator: torch.Generator) -> Dict[str, torch.Tensor]:
+    """Random weights on the generator's device, with the reference's
+    scheme: normal * 1/sqrt(fan_in) drawn in f32 then cast, norms at one,
+    biases at zero. (`torch.Generator` and `jax.random` give different
+    numbers; tests carry the reference's weights over with
+    `convert.params_from_numpy`.)"""
+    dt = _dtype(cfg)
+    dev = generator.device
+    params = {}
+    for name, (shape, _) in sorted(param_specs(cfg).items()):
+        if "norm" in name or name.endswith(("ln1", "ln2")):
+            params[name] = torch.ones(shape, dtype=dt, device=dev)
+        elif name.endswith(("bq", "bk", "bv", "shared_gate")):
+            params[name] = torch.zeros(shape, dtype=dt, device=dev)
+        else:
+            fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+            std = 1.0 / math.sqrt(max(fan_in, 1))
+            w = torch.randn(shape, generator=generator, dtype=torch.float32,
+                            device=dev)
+            params[name] = w.mul_(std).to(dt)
+    return params
+
+
+def abstract_params(cfg: ModelConfig) -> Dict[str, torch.Tensor]:
+    """Shape-and-dtype-only parameters on the meta device (no memory)."""
+    dt = _dtype(cfg)
+    return {k: torch.empty(shape, dtype=dt, device="meta")
+            for k, (shape, _) in param_specs(cfg).items()}
+
+
+# --------------------------------------------------------------------------
+# Layer
+# --------------------------------------------------------------------------
+
+def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """einsum("bsd,dhk->bshk"): (B, S, d) x (d, N, k) -> (B, S, N, k)."""
+    d, N, k = w.shape
+    return (x @ w.reshape(d, N * k)).unflatten(-1, (N, k))
+
+
+def _out_proj(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+    """einsum("bshk,hkd->bsd")."""
+    H, k, d = wo.shape
+    return o.flatten(-2) @ wo.reshape(H * k, d)
+
+
+def _qkv(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
+         positions: torch.Tensor):
+    q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
+    if cfg.qkv_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    if cfg.qk_norm:
+        q = L.rms_norm(q, p["q_norm"], cfg.rms_eps)
+        k = L.rms_norm(k, p["k_norm"], cfg.rms_eps)
+    q = L.rope_for_seq(q, positions, cfg.rope_theta)
+    k = L.rope_for_seq(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _attn(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
+          positions: torch.Tensor, *, mode: str,
+          kv_in: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+          cache_len=None, attn_impl: str = "masked",
+          window: Optional[int] = None):
+    """Self-attention. Returns (out, (k, v)) with this segment's keys and
+    values (decode reads kv_in as the full cache, new kv written)."""
+    H = cfg.num_heads
+    q, k, v = _qkv(cfg, p, x, positions)
+    if mode == "decode":
+        k_cache, v_cache = kv_in
+        out = L.decode_attention(q, L.expand_kv(k_cache, H),
+                                 L.expand_kv(v_cache, H), cache_len,
+                                 window=window)
+    else:
+        ke, ve = L.expand_kv(k, H), L.expand_kv(v, H)
+        if window is not None:
+            out = L.local_chunked_attention(q, ke, ve, window=window)
+        else:
+            out = L.chunked_attention(q, ke, ve, causal=True, impl=attn_impl)
+    return _out_proj(out.to(x.dtype), p["wo"]), (k, v)
+
+
+def _ffn(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor):
+    """Dense FFN. Returns (out, aux_loss)."""
+    if cfg.moe is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: the MoE FFN is not ported yet (slice F, "
+            f"training and the remaining model families)")
+    if cfg.mlp_glu:
+        return L.mlp_glu(x, p["w_gate"], p["w_up"], p["w_down"],
+                         cfg.act), 0.0
+    return L.mlp_classic(x, p["w_up"], p["w_down"], cfg.act), 0.0
+
+
+def _layer(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
+           positions, *, mode: str, kv_in=None, cache_len=None,
+           attn_impl: str = "masked"):
+    h = L.rms_norm(x, p["ln1"], cfg.rms_eps)
+    attn_out, kv = _attn(cfg, p, h, positions, mode=mode, kv_in=kv_in,
+                         cache_len=cache_len, attn_impl=attn_impl)
+    x = x + attn_out
+    h = L.rms_norm(x, p["ln2"], cfg.rms_eps)
+    ffn_out, aux = _ffn(cfg, p, h)
+    return x + ffn_out, kv, aux
+
+
+def _split_layers(params: Dict[str, torch.Tensor]):
+    lyr = {k[len("layers/"):]: v for k, v in params.items()
+           if k.startswith("layers/")}
+    top = {k: v for k, v in params.items() if not k.startswith("layers/")}
+    return top, lyr
+
+
+def _layer_params(lyr: Dict[str, torch.Tensor], i: int):
+    return {k: v[i] for k, v in lyr.items()}
+
+
+# --------------------------------------------------------------------------
+# Input embedding / output head (family hooks)
+# --------------------------------------------------------------------------
+
+def embed_inputs(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor]):
+    """Returns (x, positions, label_mask_prefix_len)."""
+    top, _ = _split_layers(params)
+    dev = top["embed"].device
+    if cfg.frontend.kind == "audio":
+        # stub frontend supplies precomputed frame embeddings (B, S, d)
+        x = batch["frame_embeds"].to(_dtype(cfg))
+        pos = torch.arange(x.shape[1], device=dev)
+        x = x + L.sinusoidal_pos_embed(pos, cfg.d_model).to(x.dtype)[None]
+        return x, pos, 0
+    x = top["embed"][batch["tokens"].long()]
+    prefix = 0
+    if cfg.frontend.kind == "vlm":
+        patches = batch["patch_embeds"].to(_dtype(cfg))
+        px = patches @ top["patch_proj"]
+        x = torch.cat([px, x], dim=1)
+        prefix = px.shape[1]
+    return x, torch.arange(x.shape[1], device=dev), prefix
+
+
+def output_logits(cfg: ModelConfig, params, h: torch.Tensor) -> torch.Tensor:
+    top, _ = _split_layers(params)
+    w = top["embed"] if cfg.tie_embeddings else top["head"]
+    if cfg.frontend.kind == "audio" and cfg.frontend.num_codebooks > 1:
+        logits = torch.einsum("bsd,cvd->bscv", h, w)
+    else:
+        logits = h @ w.T
+    return L.mask_pad_logits(logits, cfg.vocab_size)
+
+
+# --------------------------------------------------------------------------
+# Forward passes
+# --------------------------------------------------------------------------
+
+def forward(cfg: ModelConfig, params, batch, *, attn_impl: str = "masked"):
+    """Scoring forward: returns (logits, aux_loss)."""
+    top, lyr = _split_layers(params)
+    x, positions, prefix = embed_inputs(cfg, params, batch)
+    aux = 0.0
+    for i in range(cfg.num_layers):
+        x, _, a = _layer(cfg, _layer_params(lyr, i), x, positions,
+                         mode="train", attn_impl=attn_impl)
+        aux = aux + a
+    x = L.rms_norm(x, top["final_norm"], cfg.rms_eps)
+    logits = output_logits(cfg, params, x)
+    if prefix:
+        logits = logits[:, prefix:]
+    return logits, aux
+
+
+# ---- KV cache ------------------------------------------------------------
+
+@dataclass(frozen=True)
+class CacheSpec:
+    layout: str            # "contiguous" | "paged"
+    max_len: int
+    page_size: int = 256
+
+    @property
+    def num_pages(self) -> int:
+        return -(-self.max_len // self.page_size)
+
+
+def init_cache(cfg: ModelConfig, batch: int, spec: CacheSpec, *,
+               device="cuda"):
+    K, hd, nl = cfg.num_kv_heads, cfg.head_dim, cfg.num_layers
+    dt = _dtype(cfg)
+    length = torch.zeros((), dtype=torch.int32, device=device)
+    if spec.layout == "contiguous":
+        shape = (nl, batch, spec.max_len, K, hd)
+        return {"k": torch.zeros(shape, dtype=dt, device=device),
+                "v": torch.zeros(shape, dtype=dt, device=device),
+                "len": length}
+    P, ps = spec.num_pages, spec.page_size
+    shape = (nl, batch, P, ps, K, hd)
+    table = torch.arange(P, dtype=torch.int32,
+                         device=device)[None].repeat(batch, 1)
+    return {"k": torch.zeros(shape, dtype=dt, device=device),
+            "v": torch.zeros(shape, dtype=dt, device=device),
+            "block_table": table, "len": length}
+
+
+def _gather_pages(pool: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """pool: (B, P, ps, K, hd); table: (B, P) logical->physical page ids.
+
+    Returns the logically ordered copy (B, P*ps, K, hd): the plain paged
+    read, which the paged decode-attention kernel does without the copy.
+    """
+    B, P, ps, K, hd = pool.shape
+    rows = torch.arange(B, device=pool.device)[:, None]
+    return pool[rows, table.long()].reshape(B, P * ps, K, hd)
+
+
+def _scatter_token(pool: torch.Tensor, table: torch.Tensor,
+                   pos: torch.Tensor, val: torch.Tensor) -> torch.Tensor:
+    """Write val (B, K, hd) at logical position pos into the paged pool,
+    in place; returns the pool."""
+    B, P, ps, K, hd = pool.shape
+    # (1,) index tensors, not 0-d ones: torch turns a 0-d tensor index
+    # into a Python int, a device-to-host copy that waits for the card
+    pos = pos.reshape(1).long()
+    page, off = pos // ps, pos % ps
+    rows = torch.arange(B, device=pool.device)
+    phys = table[rows, page].long()                      # (B,)
+    pool[rows, phys, off] = val.to(pool.dtype)
+    return pool
+
+
+def decode_step(cfg: ModelConfig, params, batch, cache, *,
+                spec: CacheSpec):
+    """One token of autoregressive decode against the KV cache.
+
+    batch: {"token": (B,1) int} (or {"frame_embed": (B,1,d)} for audio).
+    Returns (logits_last, new_cache). The cache's pools are updated in
+    place and the returned cache holds the same tensors: the reference
+    gets the same effect from XLA aliasing its `fori_loop` carry, here
+    each layer writes its new k/v straight into its slice of the pool.
+    """
+    top, lyr = _split_layers(params)
+    pos = cache["len"]                           # 0-d int32 current length
+    if cfg.frontend.kind == "audio":
+        x = batch["frame_embed"].to(_dtype(cfg))
+        x = x + L.sinusoidal_pos_embed(pos[None], cfg.d_model).to(
+            x.dtype)[None]
+    else:
+        x = top["embed"][batch["token"].long()]
+    positions = pos[None]                        # (1,)
+    paged = spec.layout == "paged"
+    kernel = paged and cache["k"].device.type == "cuda"
+    B = x.shape[0]
+    if kernel:
+        lens = (pos + 1).to(torch.int32).reshape(1).expand(B).contiguous()
+        table = cache["block_table"]
+
+    for i in range(cfg.num_layers):
+        lp = _layer_params(lyr, i)
+        kc, vc = cache["k"][i], cache["v"][i]    # views into the pools
+        h = L.rms_norm(x, lp["ln1"], cfg.rms_eps)
+        q, k, v = _qkv(cfg, lp, h, positions)
+        if paged:
+            _scatter_token(kc, cache["block_table"], pos, k[:, 0])
+            _scatter_token(vc, cache["block_table"], pos, v[:, 0])
+            if kernel:
+                out = paged_decode_attention(q[:, 0], kc, vc, table,
+                                             lens)[:, None]
+            else:
+                out = L.decode_attention_grouped(
+                    q, _gather_pages(kc, cache["block_table"]),
+                    _gather_pages(vc, cache["block_table"]), pos + 1)
+        else:
+            idx = pos.long().reshape(1)
+            kc.index_copy_(1, idx, k.to(kc.dtype))
+            vc.index_copy_(1, idx, v.to(vc.dtype))
+            out = L.decode_attention_grouped(q, kc, vc, pos + 1)
+        x = x + _out_proj(out.to(x.dtype), lp["wo"])
+        h = L.rms_norm(x, lp["ln2"], cfg.rms_eps)
+        ffn_out, _ = _ffn(cfg, lp, h)
+        x = x + ffn_out
+    x = L.rms_norm(x, top["final_norm"], cfg.rms_eps)
+    logits = output_logits(cfg, params, x)
+    return logits, dict(cache, len=pos + 1)
+
+
+def prefill(cfg: ModelConfig, params, batch, *, spec: CacheSpec,
+            attn_impl: str = "masked"):
+    """Prefill: run the full prompt, return (last_logits, cache). Each
+    layer's k/v go straight into the cache, allocated once at its padded
+    length (contiguous: max_len; paged: identity table over whole
+    pages)."""
+    top, lyr = _split_layers(params)
+    x, positions, prefix = embed_inputs(cfg, params, batch)
+    B, S = x.shape[:2]
+    K, hd, nl = cfg.num_kv_heads, cfg.head_dim, cfg.num_layers
+    T = spec.max_len if spec.layout == "contiguous" else \
+        spec.num_pages * spec.page_size
+    ks = torch.zeros((nl, B, T, K, hd), dtype=x.dtype, device=x.device)
+    vs = torch.zeros_like(ks)
+    for i in range(nl):
+        x, (k, v), _ = _layer(cfg, _layer_params(lyr, i), x, positions,
+                              mode="prefill", attn_impl=attn_impl)
+        ks[i, :, :S] = k
+        vs[i, :, :S] = v
+    x = L.rms_norm(x, top["final_norm"], cfg.rms_eps)
+    logits = output_logits(cfg, params, x[:, -1:])
+    length = torch.tensor(S, dtype=torch.int32, device=x.device)
+    if spec.layout == "paged":
+        P, ps = spec.num_pages, spec.page_size
+        table = torch.arange(P, dtype=torch.int32,
+                             device=x.device)[None].repeat(B, 1)
+        return logits, {"k": ks.reshape(nl, B, P, ps, K, hd),
+                        "v": vs.reshape(nl, B, P, ps, K, hd),
+                        "block_table": table, "len": length}
+    return logits, {"k": ks, "v": vs, "len": length}

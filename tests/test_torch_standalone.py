@@ -1,7 +1,9 @@
 """The port stands alone: nothing under src/repro_torch/ and not
-chip_smoke.py imports jax or the JAX package, importing the store leaves
-jax out of sys.modules, and the store's default device (the card) is
-refused — never silently replaced by the CPU — where CUDA is absent."""
+chip_smoke.py imports jax or the JAX package, importing the store, the
+serving stack, the models and the configs leaves jax out of sys.modules,
+and the default device of the store and of the serving engine (the
+card) is refused — never silently replaced by the CPU — where CUDA is
+absent."""
 import ast
 import os
 import subprocess
@@ -35,8 +37,8 @@ def test_port_sources_import_neither_jax_nor_reference():
     assert bad == []
 
 
-def test_store_import_leaves_jax_unloaded():
-    code = ("import sys, repro_torch.core.store, repro_torch.core; "
+def _imports_leave_jax_unloaded(modules: str):
+    code = (f"import sys, {modules}; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')); print(bad); "
             "sys.exit(1 if bad else 0)")
@@ -46,6 +48,16 @@ def test_store_import_leaves_jax_unloaded():
     assert res.returncode == 0, res.stdout + res.stderr
 
 
+def test_store_import_leaves_jax_unloaded():
+    _imports_leave_jax_unloaded("repro_torch.core.store, repro_torch.core")
+
+
+def test_serving_import_leaves_jax_unloaded():
+    _imports_leave_jax_unloaded(
+        "repro_torch.serving, repro_torch.models, repro_torch.configs, "
+        "repro_torch.launch.serve, repro_torch.models.convert")
+
+
 def test_default_store_raises_without_cuda():
     if torch.cuda.is_available():
         pytest.skip("the machine has a card: the default device is usable")
@@ -53,3 +65,15 @@ def test_default_store_raises_without_cuda():
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         InfiniStore()
     assert StoreConfig().device == "cuda"
+
+
+def test_default_serving_engine_raises_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("the machine has a card: the default device is usable")
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.serving import ServeEngine, SMSPagedKV
+    cfg = reduced(get_config("qwen3-1.7b"))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        ServeEngine(cfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        SMSPagedKV(cfg, batch_slots=1, max_len=8)
