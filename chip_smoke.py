@@ -3,9 +3,9 @@
 
     python3 chip_smoke.py            # from the repository root
 
-Builds the port's three CUDA kernels from the sources in the checkout
+Builds the port's four CUDA kernels from the sources in the checkout
 (one nvcc per source, all started together; sm_90a, into
-build/repro_torch/) and drives its two paths through the user's entry
+build/repro_torch/) and drives its three paths through the user's entry
 points:
 
 - the store (phases 1-5): the GF(256) kernel against its plain PyTorch
@@ -24,7 +24,20 @@ points:
   contiguous-cache path (f32 tokens identical, bf16 teacher-forced
   logits); and seq0's KV pages evicted through the store (RS-encoded by
   the GF(256) kernel) and restored bit for bit, decoding on to the same
-  tokens as a run that never evicted.
+  tokens as a run that never evicted;
+- the GF(256) A/B entry point (phase 9): `gf256_matmul(...,
+  backend="ladder")`, the xtime-ladder kernel, bit-identical to its plain
+  version and to the bit-sliced kernel over the reference's sweep, a
+  strided view and the store's encode and decode shapes, both kernels
+  timed at those shapes;
+- training (phase 10): the RMSNorm kernel's gradients against the plain
+  version's; Qwen1.5-0.5B at its published widths and full depth trained
+  by `train()` (8 x 1024 tokens a step in 2 microbatches, bf16 weights,
+  f32 AdamW state), every parameter checked to have moved; then 2 steps
+  with a checkpoint of the 6,495,827,972-byte train state through
+  `make_store_for_checkpoints()` (RS(4+2) on the card), every other slab
+  reclaimed, and `train(..., resume=True)` continuing to the straight
+  run's losses from a bit-identical restored state.
 
 Every phase asserts; any failure exits non-zero. Prints timing lines,
 one `kernels` JSON line and, last, `{"ok": true, "device": {...}}`.
@@ -557,6 +570,444 @@ def decode_on(eng, cache, tok, steps):
     return torch.stack(toks, 1), cache
 
 
+# ---- the GF(256) A/B entry point: phase 9 --------------------------------
+
+LADDER_SWEEP = [(2, 10), (4, 4), (1, 2), (6, 12), (10, 10)]
+LADDER_L = [1, 100, 1024, 2125]
+# Integer-pipe ops the ladder kernel issues per 4-byte word and input
+# row, counted in its SASS (`cuobjdump -sass` of gf256_ladder.cu's
+# library, the aligned path of the loop over input rows) for the two
+# instantiations the store's shapes run: LOP3, SHF, IADD3, VIADD and
+# ISETP. Its IMADs (moves and shifts, 68 at m = 2 and 63 at m = 10) issue
+# to the FMA pipe, and at m = 10 the take-masks run on the uniform
+# datapath (240 ops per warp); neither competes for the int32 lanes.
+LADDER_INT_OPS = {2: 222, 10: 455}
+
+
+def ladder_ops(m: int, k: int, L: int) -> int:
+    """Integer-pipe ops of the ladder's (m,k) x (k,L) product, as its
+    SASS issues them (`LADDER_INT_OPS`; m = 2 and m = 10 only)."""
+    return k * LADDER_INT_OPS[m] * (-(-L // 4))
+
+
+def ladder_phase(dev, gen, rng, L_main: int, card: str) -> dict:
+    """Phase 9: the ladder kernel held bit for bit to its plain version and
+    to the bit-sliced kernel, driven through the A/B entry point at the
+    store's shapes (its launches counted), and both kernels timed there.
+    Returns its launches, max error and timings."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.rs_gf256 import kernel
+    from repro_torch.kernels.rs_gf256.ops import gf256_matmul
+    from repro_torch.kernels.rs_gf256.ref import (cauchy_parity_matrix,
+                                                  gf256_matmul_ladder_ref)
+
+    def rand_x(k, L, pad=0):
+        return torch.randint(0, 256, (k, L + pad), dtype=torch.uint8,
+                             device=dev, generator=gen)
+
+    k, p = 10, 2
+    cases = [(m, kk, L, 0) for m, kk in LADDER_SWEEP for L in LADDER_L]
+    cases += [(10, 10, 2125, 1), (10, 10, 65_539, 3), (2, 10, 65_539, 1)]
+    checks = max_err = 0
+    for m, kk, L, off in cases:
+        G = rng.integers(0, 256, (m, kk), dtype=np.uint8)
+        X = rand_x(kk, L, off)[:, off:]           # offset view: unaligned
+        got = gf256_matmul(G, X, backend="ladder")
+        want = gf256_matmul_ladder_ref(G, X)
+        other = gf256_matmul(G, X, backend="bitsliced")
+        torch.cuda.synchronize()
+        max_err = max(max_err, int((got.int() - want.int()).abs().max()))
+        assert torch.equal(got, want), (m, kk, L, off)
+        assert torch.equal(got, other), (m, kk, L, off)
+        checks += 1
+    shapes = {"encode": (cauchy_parity_matrix(k, p), rand_x(k, L_main)),
+              "decode": (rng.integers(0, 256, (k, k), dtype=np.uint8),
+                         rand_x(k, L_main))}
+    for name, (G, X) in shapes.items():
+        got = gf256_matmul(G, X, backend="ladder")
+        want = gf256_matmul_ladder_ref(G, X)
+        other = gf256_matmul(G, X, backend="bitsliced")
+        torch.cuda.synchronize()
+        assert torch.equal(got, want) and torch.equal(got, other), name
+        checks += 1
+        del got, want, other
+    print(f"phase 9 ladder kernel: {checks} checks bit-identical to the "
+          f"plain ladder and to the bit-sliced kernel ((m,k) in "
+          f"{LADDER_SWEEP} x L in {LADDER_L}; offset views at L 2125 and "
+          f"65539; the store's encode (2,10) and decode (10,10) at L "
+          f"{L_main}), max_abs_err {max_err}")
+
+    # the A/B entry point at the store's shapes, as a benchmark calls it
+    torch.cuda.synchronize()
+    kernel.ladder_launches = 0
+    for G, X in shapes.values():
+        gf256_matmul(G, X, backend="ladder")
+    torch.cuda.synchronize()
+    launches = kernel.ladder_launches
+    assert launches == len(shapes), launches
+
+    timing = {}
+    for name, (G, X) in shapes.items():
+        m = G.shape[0]
+        ms = event_ms(lambda: kernel.gf256_matmul_ladder_cuda(G, X), reps=20)
+        bits_ms = event_ms(lambda: kernel.gf256_matmul_cuda(G, X), reps=20)
+        plain = event_ms(lambda: gf256_matmul_ladder_ref(G, X), reps=3,
+                         warmup=1, spin=False)
+        nbytes = (k + m) * L_main + m * k * 4
+        ops = ladder_ops(m, k, L_main)
+        b_ms, by = bound(nbytes, ops)
+        bits_b, _, _, bits_ops = gf_bound_ms(m, k, L_main)
+        timing[name] = dict(ms=ms, plain_ms=plain, bound_ms=b_ms,
+                            bound_by=by, bitsliced_ms=bits_ms)
+        print(f"kernel gf256_matmul_ladder {name} (m={m}, k={k}, "
+              f"L={L_main}): {ms * 1e3:.1f} us | bound {b_ms * 1e3:.1f} us "
+              f"by {by} ({nbytes} bytes, {ops} int32 ops) | plain ladder "
+              f"{plain * 1e3:.1f} us | bit-sliced kernel "
+              f"{bits_ms * 1e3:.1f} us (bound {bits_b * 1e3:.1f} us, "
+              f"{bits_ops} int32 ops) | {card}")
+    del shapes
+    return {"launches": launches, "max_abs_err": max_err, "timing": timing}
+
+
+# ---- training: phase 10 --------------------------------------------------
+
+QWEN15 = "qwen1.5-0.5b"
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICRO, TRAIN_STEPS = 1024, 8, 2, 4
+CKPT_STEP = 2
+STATE_BYTES = 6_495_827_972      # bf16 params + f32 mu, nu, master + count
+LOSS_TOL = 2e-4                  # tests/test_checkpoint.py's tolerance
+
+
+def train_flops(cfg, tokens: int, seq: int, n_params: int) -> int:
+    """Matrix-product flops of one train step: 6 N per token (forward and
+    backward, the tied head included), the remat recompute of every
+    layer's forward (2 N_layer per token), and causal attention (QK and
+    PV over S(S+1)/2 pairs per sequence and head) in the forward, the
+    backward (twice) and the recompute."""
+    layer_params = n_params - cfg.vocab_size * cfg.d_model - cfg.d_model
+    attn_fwd = 2 * 2 * cfg.num_heads * cfg.head_dim \
+        * (seq * (seq + 1) // 2) * (tokens // seq) * cfg.num_layers
+    return 6 * n_params * tokens + 2 * layer_params * tokens + 4 * attn_fwd
+
+
+# kinds of device kernel in a train step, by words in their names (first
+# match wins): the repo's RMSNorm kernel, matrix products (cuBLAS and
+# CUTLASS), reductions, indexing (the embedding's gather and its
+# scatter-add backward), copies, then PyTorch's elementwise kernels
+TRAIN_KERNEL_KINDS = [
+    ("rmsnorm kernel", ("rmsnorm_kernel",)),
+    ("matrix products", ("gemm", "nvjet", "cutlass", "xmma", "cublas")),
+    ("reductions", ("reduce_kernel", "softmax", "norm_kernel")),
+    ("indexing", ("index", "scatter", "gather")),
+    ("copies", ("memcpy", "memset", "copy")),
+    ("elementwise", ("elementwise",)),
+]
+
+
+def profile_train_step(dev, cfg, shape, median: float, card: str) -> None:
+    """Where a train step's device time goes: one step of `train()`'s own
+    step function (after a warm one) under torch.profiler, against the
+    unprofiled median step."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw
+    model = build_model(cfg)
+    step_fn = make_train_step(model, adamw.AdamWConfig(lr=1e-3,
+                                                       warmup_steps=10))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = model.init_params(gen)
+    opt = adamw.adamw_init(params)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in make_batch(
+        cfg, shape, step=0, num_microbatches=TRAIN_MICRO).items()}
+    params, opt, metrics = step_fn(params, opt, batch)        # warm
+    float(metrics["loss"])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        params, opt, metrics = step_fn(params, opt, batch)
+        float(metrics["loss"])
+        torch.cuda.synchronize()
+        window = time.perf_counter() - t
+    del params, opt, metrics, batch
+    torch.cuda.empty_cache()
+    kernels = [e for e in prof.key_averages()
+               if getattr(e, "device_type", None) is not None
+               and str(e.device_type).endswith("CUDA")]
+    dev_ms = sum(getattr(e, "self_device_time_total", 0.0)
+                 for e in kernels) / 1e3
+    if dev_ms <= 0:
+        print("train step profile: torch.profiler saw no device time "
+              "(device busy share not measured)")
+        return
+    # device time by kind of kernel, from the kernel's name
+    kinds = {}
+    for e in kernels:
+        name = e.key.lower()
+        kind = next((k for k, words in TRAIN_KERNEL_KINDS
+                     if any(w in name for w in words)), "other")
+        ms, n = kinds.get(kind, (0.0, 0))
+        kinds[kind] = (ms + e.self_device_time_total / 1e3, n + e.count)
+    by_kind = "; ".join(f"{k} {ms:.3f} ms x{n}" for k, (ms, n) in sorted(
+        kinds.items(), key=lambda kv: -kv[1][0]))
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]
+    top = "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3:.3f} "
+                    f"ms x{e.count}" for e in top)
+    print(f"train step profile (1 step under torch.profiler, "
+          f"{window * 1e3:.3f} ms there): device busy {dev_ms:.3f} ms over "
+          f"{sum(e.count for e in kernels)} device operations; against the "
+          f"unprofiled median step {median * 1e3:.3f} ms the device is idle "
+          f"{100 * (1 - dev_ms / 1e3 / median):.2f}%; by kind: {by_kind}; "
+          f"top: {top} | {card}")
+
+
+def train_phase(dev, card: str, cfg) -> dict:
+    """Phase 10: `cfg` (Qwen1.5-0.5B at full width and depth) trained on
+    the card, with a checkpoint through the store and a resume after
+    every other slab is reclaimed. Returns launches and timings."""
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.checkpoint.checkpointer import _leaf_paths
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.kernels.rmsnorm import kernel as rms_kernel
+    from repro_torch.kernels.rmsnorm.ops import (rms_norm_backward,
+                                                 rms_norm_op)
+    from repro_torch.kernels.rmsnorm.ref import rms_norm_ref
+    from repro_torch.kernels.rs_gf256 import kernel as gf_kernel
+    from repro_torch.launch.train import make_store_for_checkpoints, train
+    from repro_torch.models.transformer import init_params, param_specs
+
+    names = sorted(param_specs(cfg))
+    assert len(names) == 14, names
+
+    # ---- (a) the RMSNorm kernel's gradients, at the training shape ----
+    rows = TRAIN_BATCH // TRAIN_MICRO * TRAIN_SEQ
+    grad_err = {}
+    for dname in ("float32", "bfloat16"):
+        dtype = getattr(torch, dname)
+        g = torch.Generator(device=dev)
+        g.manual_seed(SEED)
+        x = torch.randn((rows, cfg.d_model), generator=g, device=dev).to(
+            dtype).requires_grad_(True)
+        w = (torch.randn(cfg.d_model, generator=g, device=dev) * 0.1
+             + 1.0).to(dtype).requires_grad_(True)
+        dy = torch.randn((rows, cfg.d_model), generator=g, device=dev).to(
+            dtype)
+        y = rms_norm_op(x, w, cfg.rms_eps)
+        assert y.grad_fn is not None
+        got = torch.autograd.grad(y, (x, w), dy)
+        want = torch.autograd.grad(rms_norm_ref(x, w, cfg.rms_eps), (x, w),
+                                   dy)
+        torch.cuda.synchronize()
+        worst = 0.0
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype == dtype
+            torch.testing.assert_close(a.float(), b.float(),
+                                       atol=RMS_TOL[dname],
+                                       rtol=RMS_TOL[dname])
+            worst = max(worst, float((a.float() - b.float()).abs().max()))
+        grad_err[dname] = worst
+    print(f"phase 10a RMSNorm gradients (the kernel's autograd Function vs "
+          f"autograd of the plain version) at ({rows}, {cfg.d_model}): "
+          f"max_abs_err f32 {grad_err['float32']:.3e} (tol 1e-5), bf16 "
+          f"{grad_err['bfloat16']:.3e} (tol 2e-2)")
+
+    # ---- (b) a straight run -------------------------------------------
+    torch.backends.cuda.matmul.allow_tf32 = False
+    shape = ShapeConfig("chip_train", seq_len=TRAIN_SEQ,
+                        global_batch=TRAIN_BATCH, kind="train")
+    run = dict(seed=0, num_microbatches=TRAIN_MICRO, device=dev.type)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    init = init_params(cfg, gen)                  # train()'s own draw
+    n_params = sum(t.numel() for t in init.values())
+    torch.cuda.synchronize()
+    rms_kernel.launches = 0
+    one = train(cfg, shape, steps=1, **run)
+    torch.cuda.synchronize()
+    rms_one = rms_kernel.launches
+    # per microbatch: 2 norms per layer + the final norm in the forward,
+    # and the 2 per layer again in the remat recompute
+    per_step_rms = TRAIN_MICRO * (4 * cfg.num_layers + 1)
+    assert rms_one == per_step_rms, (rms_one, per_step_rms)
+    p1, o1 = one.state["params"], one.state["opt"]
+    # a step of lr 1e-4 moves a norm weight of 1.0 by less than bf16's
+    # spacing there, so the check reads the f32 master weights, and the
+    # first moment (weight decay alone would move master; only a
+    # gradient makes mu nonzero). A cut graph leaves a tensor's mu all
+    # zero; a live one can hold an exact zero where a bf16 gradient
+    # cancels, so the check asks for most elements
+    moved, live = {}, {}
+    for name in names:
+        assert torch.isfinite(o1["master"][name]).all(), name
+        delta = float((o1["master"][name] - init[name].float()).abs().max())
+        assert delta > 0, name
+        live[name] = float((o1["mu"][name] != 0).float().mean())
+        assert live[name] > 0.5, (name, live[name])
+        moved[name] = int((p1[name] != init[name]).sum())
+    del one, p1, o1, init
+    torch.cuda.empty_cache()
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rms_kernel.launches = 0
+    straight = train(cfg, shape, steps=TRAIN_STEPS, **run)
+    torch.cuda.synchronize()
+    rms_straight = rms_kernel.launches
+    peak = torch.cuda.max_memory_allocated()
+    assert rms_straight == per_step_rms * TRAIN_STEPS, rms_straight
+    assert np.isfinite(straight.losses).all(), straight.losses
+    assert len(straight.losses) == TRAIN_STEPS
+    del straight.state
+    torch.cuda.empty_cache()
+    print(f"phase 10b train {QWEN15} at published widths and depth "
+          f"({n_params} params, bf16, AdamW f32 state), {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ} tokens per step in {TRAIN_MICRO} microbatches: "
+          f"losses {straight.losses}; after step 1 every one of the "
+          f"{len(names)} parameter tensors has moved master weights and a "
+          f"nonzero first moment (share of nonzero elements, least "
+          f"{min(live.values()):.6f}: final_norm {live['final_norm']:.6f},"
+          f" ln1 {live['layers/ln1']:.6f}, ln2 {live['layers/ln2']:.6f}; "
+          f"bf16 elements changed: {json.dumps(moved)}); RMSNorm launches "
+          f"{rms_straight} "
+          f"({per_step_rms} per step, remat recompute included); peak "
+          f"device memory {peak} bytes")
+
+    # ---- (c) checkpoint, reclaim every other slab, resume -------------
+    class TimedCheckpointer(Checkpointer):
+        """`Checkpointer` with each save's wall time (synchronised)."""
+
+        def __init__(self, store):
+            super().__init__(store)
+            self.save_s = []
+
+        def save(self, step, state):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            super().save(step, state)
+            torch.cuda.synchronize()
+            self.save_s.append(time.perf_counter() - t)
+
+    store = make_store_for_checkpoints(device=dev.type)
+    ck = TimedCheckpointer(store)
+    torch.cuda.synchronize()
+    gf_kernel.launches = 0
+    first = train(cfg, shape, steps=CKPT_STEP, checkpointer=ck,
+                  checkpoint_every=CKPT_STEP, **run)
+    torch.cuda.synchronize()
+    gf_save = gf_kernel.launches
+    assert gf_save > 0, gf_save
+    assert len(ck.save_s) == 1 and ck.latest_step() == CKPT_STEP
+    saved = first.state
+    state_bytes = sum(t.numel() * t.element_size()
+                      for _, t in _leaf_paths(saved))
+    assert state_bytes == STATE_BYTES, state_bytes
+    # the embedding's backward accumulates with atomics: two runs agree
+    # to rounding, not bit for bit
+    np.testing.assert_allclose(first.losses, straight.losses[:CKPT_STEP],
+                               rtol=LOSS_TOL, atol=LOSS_TOL)
+    t = time.perf_counter()
+    assert store.flush_writeback(timeout=900.0)
+    flush_s = time.perf_counter() - t
+    slabs = list(store.sms.slabs)
+    for fid in slabs[::2]:
+        store.inject_failure(fid)
+    rec = store.recovery.stats
+    rec0 = rec.local_recoveries + rec.parallel_recoveries
+    gf_kernel.launches = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    resumed = train(cfg, shape, steps=TRAIN_STEPS, resume=True,
+                    checkpointer=ck, **run)
+    torch.cuda.synchronize()
+    resume_s = time.perf_counter() - t
+    gf_restore = gf_kernel.launches
+    recoveries = rec.local_recoveries + rec.parallel_recoveries - rec0
+    assert resumed.restored_from == CKPT_STEP, resumed.restored_from
+    assert gf_restore + recoveries > 0, (gf_restore, recoveries)
+    np.testing.assert_allclose(resumed.losses,
+                               straight.losses[CKPT_STEP:],
+                               rtol=LOSS_TOL, atol=LOSS_TOL)
+    del resumed.state
+    torch.cuda.empty_cache()
+    gf_kernel.launches = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    back = ck.restore(CKPT_STEP, like=saved)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t
+    gf_restore2 = gf_kernel.launches
+    for (name, a), (_, b) in zip(_leaf_paths(saved), _leaf_paths(back)):
+        assert b.device == a.device and b.dtype == a.dtype, name
+        assert torch.equal(a, b), name
+    print(f"phase 10c checkpoint: step {CKPT_STEP}'s train state "
+          f"({state_bytes} bytes, {len(_leaf_paths(saved))} leaves) saved "
+          f"through InfiniStore(device='cuda', RS(4+2)) in "
+          f"{ck.save_s[0]:.3f} s with {gf_save} GF(256) launches; "
+          f"writeback flushed in {flush_s:.3f} s; {len(slabs[::2])} of "
+          f"{len(slabs)} slabs reclaimed; train(resume=True) restored from "
+          f"step {resumed.restored_from} and trained steps "
+          f"{CKPT_STEP + 1}-{TRAIN_STEPS} in {resume_s:.3f} s (GF(256) "
+          f"launches {gf_restore}, recoveries {recoveries}): losses "
+          f"{resumed.losses} == straight run's {straight.losses[CKPT_STEP:]}"
+          f" within {LOSS_TOL}; the state restored again in "
+          f"{restore_s:.3f} s (GF(256) launches {gf_restore2}) is "
+          f"bit-identical to the saved one")
+    del back, saved, first
+    assert store.close()
+    del store
+    torch.cuda.empty_cache()
+
+    # ---- (d) numbers --------------------------------------------------
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    step_s = sorted(straight.step_seconds[1:])
+    median = step_s[len(step_s) // 2]
+    profile_train_step(dev, cfg, shape, median, card)
+    flops = train_flops(cfg, tokens, TRAIN_SEQ, n_params)
+    # bytes: the train state read once and written once
+    b_ms, by = bound(2 * STATE_BYTES, flops, ops_per_s=BF16_FLOPS_PER_S)
+    print(f"train step: median {median * 1e3:.3f} ms over steps 2-"
+          f"{TRAIN_STEPS} (first step {straight.step_seconds[0] * 1e3:.3f}"
+          f" ms) = {tokens / median:.1f} tokens/s | bound {b_ms:.3f} ms by "
+          f"{by} ({flops} flops at the bf16 peak) = "
+          f"{tokens / (b_ms / 1e3):.1f} tokens/s; "
+          f"{100 * b_ms / 1e3 / median:.2f}% of it | {card}")
+    mbs = STATE_BYTES / MB
+    print(f"checkpoint save: {STATE_BYTES} bytes in {ck.save_s[0]:.3f} s = "
+          f"{mbs / ck.save_s[0]:.1f} MB/s; restore after the slab failures "
+          f"(train's resume, restore + {TRAIN_STEPS - CKPT_STEP} steps) "
+          f"{resume_s:.3f} s; restore alone {restore_s:.3f} s = "
+          f"{mbs / restore_s:.1f} MB/s | {card}")
+    x = torch.randn((rows, cfg.d_model), device=dev, dtype=torch.bfloat16)
+    dy = torch.randn_like(x)
+    w = torch.ones(cfg.d_model, device=dev, dtype=torch.bfloat16)
+    ms = event_ms(lambda: rms_kernel.rms_norm_cuda(x, w, cfg.rms_eps),
+                  reps=50)
+    plain = event_ms(lambda: rms_norm_ref(x, w, cfg.rms_eps), reps=20)
+    bwd = event_ms(lambda: rms_norm_backward(x, w, cfg.rms_eps, dy),
+                   reps=20)
+    nbytes = 2 * x.numel() * 2 + w.numel() * 2
+    rb_ms, rby = bound(nbytes, 3 * x.numel(), ops_per_s=F32_FLOPS_PER_S)
+    print(f"kernel rmsnorm train ln ({rows}, {cfg.d_model}) bf16: "
+          f"{ms * 1e3:.2f} us | bound {rb_ms * 1e3:.2f} us by {rby} | "
+          f"plain {plain * 1e3:.2f} us | backward (plain torch, dx and "
+          f"dscale) {bwd * 1e3:.2f} us | {card}")
+    launches = {"rmsnorm_step1": rms_one, "rmsnorm_straight": rms_straight,
+                "gf256_save": gf_save, "gf256_resume": gf_restore,
+                "recoveries_resume": recoveries,
+                "gf256_restore_again": gf_restore2}
+    print("phase 10 launches: " + json.dumps(launches))
+    return {"rmsnorm_launches": rms_one + rms_straight,
+            "gf_launches": gf_save + gf_restore + gf_restore2,
+            "grad_err": max(grad_err.values())}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -589,8 +1040,8 @@ def main() -> int:
     from repro_torch.kernels.paged_attention import kernel as pa_kernel
     from repro_torch.kernels.rmsnorm import kernel as rms_kernel
     t0 = time.perf_counter()
-    libs = _build.build_many([kernel.SOURCE, rms_kernel.SOURCE,
-                              pa_kernel.SOURCE])
+    libs = _build.build_many([kernel.SOURCE, kernel.LADDER_SOURCE,
+                              rms_kernel.SOURCE, pa_kernel.SOURCE])
     print(f"build: {', '.join(str(lib.relative_to(ROOT)) for lib in libs)}"
           f" in {time.perf_counter() - t0:.3f} s (in parallel)")
 
@@ -847,6 +1298,21 @@ def main() -> int:
     checks = kernel_checks(dev)
     serving = serve(dev, work, card)
     shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # ---- phase 9: the GF(256) A/B entry point --------------------------
+    ladder = ladder_phase(dev, gen, rng, L_main, card)
+    torch.cuda.empty_cache()
+
+    # ---- phase 10: training with checkpoints through the store ---------
+    from repro_torch.configs import get_config
+    cfg15 = get_config(QWEN15)
+    assert (cfg15.num_layers, cfg15.d_model, cfg15.num_heads,
+            cfg15.num_kv_heads, cfg15.head_dim, cfg15.d_ff,
+            cfg15.vocab_size, cfg15.qkv_bias, cfg15.tie_embeddings,
+            cfg15.dtype) == (24, 1024, 16, 16, 64, 2816, 151936, True,
+                             True, "bfloat16")
+    training = train_phase(dev, card, cfg15)
 
     enc = timing["encode"]
     print(json.dumps({"kernels": [{
@@ -856,17 +1322,29 @@ def main() -> int:
         "replaces": "src/repro/kernels/rs_gf256/kernel.py:58",
         "launches": counts["put"] + counts["get"]
         + counts["degraded_get"] + counts["replay"]
-        + serving["gf_evict_launches"],
+        + serving["gf_evict_launches"] + training["gf_launches"],
         "max_abs_err": max_err,
         "ms": enc["ms"],
         "plain_ms": enc["plain_ms"],
         "bound_ms": enc["bound_ms"],
         "bound_by": enc["bound_by"],
         "library_ms": None,
+    }, {
+        "name": "gf256_matmul_ladder",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/rs_gf256/csrc/gf256_ladder.cu",
+        "replaces": "src/repro/kernels/rs_gf256/kernel.py:131",
+        "launches": ladder["launches"],
+        "max_abs_err": ladder["max_abs_err"],
+        **{key: ladder["timing"]["encode"][key] for key in (
+            "ms", "plain_ms", "bound_ms", "bound_by")},
+        "library_ms": None,
     }] + [dict(
         name=name, route="cuda", source=source, replaces=replaces,
-        launches=serving["launches"][name],
-        max_abs_err=checks[name],
+        launches=serving["launches"][name] + (
+            training["rmsnorm_launches"] if name == "rmsnorm" else 0),
+        max_abs_err=max(checks[name], training["grad_err"]
+                        if name == "rmsnorm" else 0.0),
         **{key: serving["timing"][name][key] for key in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
         for name, source, replaces in (

@@ -50,7 +50,8 @@ def as_u8(p) -> torch.Tensor:
     """Flat uint8 tensor view of the payload on its own device (host
     buffers become CPU tensors); copies only for non-contiguous input."""
     if isinstance(p, torch.Tensor):
-        return p.contiguous().view(torch.uint8).reshape(-1)
+        # flattened first: torch refuses a dtype view of a 0-d tensor
+        return p.contiguous().reshape(-1).view(torch.uint8)
     if isinstance(p, _BYTES_LIKE):
         if payload_nbytes(p) == 0:
             return torch.empty(0, dtype=torch.uint8)

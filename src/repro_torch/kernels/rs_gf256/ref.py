@@ -148,3 +148,29 @@ def gf256_matmul_ref(G, X: torch.Tensor) -> torch.Tensor:
     for j in range(k):
         out ^= torch.index_select(rows[:, j], 1, X[j].long())
     return out
+
+
+def gf256_matmul_ladder_ref(G, X: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch xtime ladder, the ladder kernel's plain version: the
+    same (m,k) @ (k,L) product on X's device, one byte per int32 lane.
+    For each input row j the running multiple a = X[j] * 2^bit is built
+    by xtime (shift, mask to a byte, 0x1D when bit 7 carried out), and
+    each output row takes it where its coefficient has that bit — the
+    arithmetic of the JAX package's `_gf_mul_const`, rows vectorised.
+    Bit-identical to `gf_matmul_np`."""
+    dev = X.device
+    if not isinstance(G, torch.Tensor):
+        G = torch.from_numpy(np.ascontiguousarray(G, np.uint8))
+    G = G.to(device=dev, dtype=torch.int32)
+    m, k = G.shape
+    if X.dtype != torch.uint8 or X.dim() != 2 or X.shape[0] != k:
+        raise ValueError(f"X must be ({k}, L) uint8, got "
+                         f"{tuple(X.shape)} {X.dtype}")
+    out = torch.zeros((m, X.shape[1]), dtype=torch.int32, device=dev)
+    for j in range(k):
+        a = X[j].to(torch.int32)[None, :]                  # (1, L)
+        for bit in range(8):
+            take = -((G[:, j:j + 1] >> bit) & 1)             # (m, 1): 0 / -1
+            out ^= a & take
+            a = ((a << 1) & 0xFF) ^ (((a >> 7) & 1) * 0x1D)
+    return out.to(torch.uint8)

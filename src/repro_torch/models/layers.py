@@ -1,5 +1,5 @@
 """Shared model layers: norms, rotary embeddings, chunked (flash-style)
-attention, decode attention and MLPs, on torch tensors.
+attention, decode attention, MLPs and the loss, on torch tensors.
 
 The same functions as the JAX package's `models/layers.py`, with the
 same layouts and the same order of f32 operations, so both packages
@@ -312,3 +312,31 @@ def mask_pad_logits(logits: torch.Tensor, vocab_size: int) -> torch.Tensor:
     return torch.where(idx < vocab_size, logits,
                        torch.tensor(NEG_INF, dtype=logits.dtype,
                                     device=logits.device))
+
+
+# --------------------------------------------------------------------------
+# Loss
+# --------------------------------------------------------------------------
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                          mask: Optional[torch.Tensor] = None,
+                          z_loss: float = 0.0) -> torch.Tensor:
+    """logits: (..., V), labels: (...). Mean token loss in f32.
+
+    The log-sum-exp is the reference's (a max held out of the gradient,
+    then log of the summed exponentials). The gold logit is gathered with
+    `take_along_dim`; the reference picks it with an iota mask, which
+    keeps a vocab-sharded reduction local, and on one device would build
+    an index tensor the size of the logits for the same number."""
+    logits = logits.float()
+    m = logits.amax(dim=-1, keepdim=True).detach()
+    lse = m[..., 0] + torch.log(torch.exp(logits - m).sum(dim=-1))
+    gold = torch.take_along_dim(logits, labels.long()[..., None],
+                                dim=-1)[..., 0]
+    loss = lse - gold
+    if z_loss:
+        loss = loss + z_loss * torch.square(lse)
+    if mask is not None:
+        loss = loss * mask
+        return loss.sum() / torch.clamp(mask.sum(), min=1.0)
+    return loss.mean()

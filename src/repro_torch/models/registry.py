@@ -2,9 +2,10 @@
 take and return plain dicts of tensors, so the serving layer never
 branches on family.
 
-The transformer families (dense, vlm, audio) are ported. The ssm
-(RWKV6) and hybrid (RG-LRU) families raise `NotImplementedError` here,
-the MoE FFN and the training loss when called: they come with slice F.
+The transformer families (dense, vlm, audio) are ported, training
+loss included. The ssm (RWKV6) and hybrid (RG-LRU) families raise
+`NotImplementedError` here, the MoE FFN when called: they come with the
+rest of slice F.
 """
 from __future__ import annotations
 
@@ -17,8 +18,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer
 from repro_torch.models.transformer import CacheSpec
 
-SLICE_F = "not ported yet (slice F, training and the remaining model " \
-          "families)"
+SLICE_F = "not ported yet (slice F: the remaining model families)"
 
 
 @dataclass(frozen=True)
@@ -42,13 +42,6 @@ class Model:
         return sum(int(p.numel()) for p in tree.values())
 
 
-def _loss_fn(cfg: ModelConfig):
-    def loss_fn(params, batch):
-        raise NotImplementedError(f"{cfg.name}: the training loss is "
-                                  f"{SLICE_F}")
-    return loss_fn
-
-
 def build_model(cfg: ModelConfig, *, kv_layout: str = "paged",
                 page_size: int = 256, attn_impl: str = "masked") -> Model:
     if cfg.family in ("ssm", "hybrid"):
@@ -69,7 +62,8 @@ def build_model(cfg: ModelConfig, *, kv_layout: str = "paged",
         cfg=cfg,
         init_params=lambda gen: transformer.init_params(cfg, gen),
         abstract_params=lambda: transformer.abstract_params(cfg),
-        loss_fn=_loss_fn(cfg),
+        loss_fn=lambda p, b: transformer.loss_fn(cfg, p, b,
+                                                 attn_impl=attn_impl),
         forward=lambda p, b: transformer.forward(cfg, p, b,
                                                  attn_impl=attn_impl),
         prefill=prefill,

@@ -5,8 +5,9 @@ The same model as the JAX package's `models/transformer.py`: the same
 flat parameter dict (`"embed"`, `"layers/wq"`, ... with a leading layer
 axis on layer parameters), the same layouts and the same caches. What
 differs is PyTorch idiom: layers run in a Python loop, caches are
-updated in place, and there is no mesh (one device; sharding comes with
-training). The MoE FFN and the training loss are not ported yet.
+updated in place, and there is no mesh (one device). Training remats
+each layer with `torch.utils.checkpoint` where the reference uses
+`jax.checkpoint`. The MoE FFN is not ported yet.
 
 Decode over a paged cache on the card runs the paged decode-attention
 kernel straight on the pool (`decode_step`); on the CPU it keeps the
@@ -20,6 +21,7 @@ from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, padded_vocab
 from repro_torch.kernels.paged_attention.ops import paged_decode_attention
@@ -181,8 +183,8 @@ def _ffn(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor):
     """Dense FFN. Returns (out, aux_loss)."""
     if cfg.moe is not None:
         raise NotImplementedError(
-            f"{cfg.name}: the MoE FFN is not ported yet (slice F, "
-            f"training and the remaining model families)")
+            f"{cfg.name}: the MoE FFN is not ported yet (slice F: the "
+            f"remaining model families)")
     if cfg.mlp_glu:
         return L.mlp_glu(x, p["w_gate"], p["w_up"], p["w_down"],
                          cfg.act), 0.0
@@ -250,20 +252,48 @@ def output_logits(cfg: ModelConfig, params, h: torch.Tensor) -> torch.Tensor:
 # Forward passes
 # --------------------------------------------------------------------------
 
-def forward(cfg: ModelConfig, params, batch, *, attn_impl: str = "masked"):
-    """Scoring forward: returns (logits, aux_loss)."""
+def forward(cfg: ModelConfig, params, batch, *, attn_impl: str = "masked",
+            remat: bool = True):
+    """Training/scoring forward: returns (logits, aux_loss).
+
+    With `remat` and autograd recording, each layer runs under
+    `torch.utils.checkpoint` (non-reentrant): it keeps only its input and
+    recomputes its activations in the backward, as the reference's
+    `jax.checkpoint(..., nothing_saveable)` does — so a CUDA run
+    launches each layer's RMSNorm kernels twice."""
     top, lyr = _split_layers(params)
     x, positions, prefix = embed_inputs(cfg, params, batch)
+
+    def body(x, lp):
+        x, _, a = _layer(cfg, lp, x, positions, mode="train",
+                         attn_impl=attn_impl)
+        return x, a
+
     aux = 0.0
     for i in range(cfg.num_layers):
-        x, _, a = _layer(cfg, _layer_params(lyr, i), x, positions,
-                         mode="train", attn_impl=attn_impl)
+        lp = _layer_params(lyr, i)
+        if remat and torch.is_grad_enabled():
+            x, a = checkpoint(body, x, lp, use_reentrant=False,
+                              preserve_rng_state=False)
+        else:
+            x, a = body(x, lp)
         aux = aux + a
     x = L.rms_norm(x, top["final_norm"], cfg.rms_eps)
     logits = output_logits(cfg, params, x)
     if prefix:
         logits = logits[:, prefix:]
     return logits, aux
+
+
+def loss_fn(cfg: ModelConfig, params, batch, *, attn_impl: str = "masked",
+            remat: bool = True):
+    """Mean next-token cross entropy (plus the MoE router loss, whose FFN
+    is not ported): returns (loss, {"ce", "aux"})."""
+    logits, aux = forward(cfg, params, batch, attn_impl=attn_impl,
+                          remat=remat)
+    loss = L.softmax_cross_entropy(logits, batch["labels"])
+    coef = cfg.moe.router_aux_coef if cfg.moe is not None else 0.0
+    return loss + coef * aux, {"ce": loss, "aux": aux}
 
 
 # ---- KV cache ------------------------------------------------------------

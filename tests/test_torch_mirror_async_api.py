@@ -13,5 +13,6 @@ globals().update(mirror("test_async_api.py", skip={
     "test_get_array_results_are_read_only":
         "torch has no read-only tensors: array GETs are private copies",
     "test_checkpoint_device_payloads_use_array_path":
-        "the checkpointer is slice D, not ported yet",
+        "its leaves are jax.Arrays; the port's checkpointer takes torch "
+        "tensors, held by test_torch_checkpoint.py's array-path test",
 }))

@@ -1,8 +1,10 @@
-"""The port's GF(256) arithmetic and Reed-Solomon kernel wrapper held to
+"""The port's GF(256) arithmetic and Reed-Solomon kernel wrappers held to
 the JAX package's: tables, Cauchy and inverse matrices, and the plain
-PyTorch product bit-identical (tolerance 0) to `gf_matmul_np` and to
-the Pallas kernel in interpret mode. The CUDA kernel is held to the
-plain version on the card (`-m cuda`; skipped without one).
+PyTorch products — the codec's and the xtime ladder's — bit-identical
+(tolerance 0) to `gf_matmul_np` and to the Pallas kernels in interpret
+mode; the `backend=` dispatch of `gf256_matmul`. The CUDA kernels are
+held to their plain versions and to each other on the card (`-m cuda`;
+skipped without one).
 
 The JAX package is imported inside the parity tests only, so the CUDA
 case runs on a machine that has no JAX."""
@@ -129,7 +131,79 @@ def test_dispatch_refuses_what_it_cannot_run():
 def test_import_builds_nothing():
     # the CPU tests import the kernel module on machines without nvcc:
     # nothing is compiled or loaded until a CUDA tensor reaches it
-    assert tkernel._lib is None or torch.cuda.is_available()
+    assert not tkernel._libs or torch.cuda.is_available()
+
+
+LADDER_SWEEP = [(2, 10), (4, 4), (1, 2), (6, 12), (10, 10)]
+
+
+def _pallas_ladder(G, X):
+    """The Pallas ladder in interpret mode, called one 1024-byte tile of
+    columns at a time — the tiles its grid walks, and independent — so
+    every L reuses one compiled (m, k) kernel (interpret mode compiles
+    anew for each grid length, ~15 s apiece at m = k = 10)."""
+    from repro.kernels.rs_gf256.kernel import (TILE,
+                                               gf256_matmul_pallas_ladder)
+    return np.concatenate([
+        np.asarray(gf256_matmul_pallas_ladder(G, X[:, c:c + TILE],
+                                              interpret=True))
+        for c in range(0, X.shape[1], TILE)], axis=1)
+
+
+@pytest.mark.parametrize("m,k", LADDER_SWEEP)
+@pytest.mark.parametrize("L", [1, 100, 1024, 2125])
+def test_plain_ladder_matches_reference_and_pallas_ladder(m, k, L):
+    from repro.kernels.rs_gf256.ref import gf_matmul_np
+    G, X = _operands(m, k, L, m * 1000 + k * 10 + L + 1)
+    want = gf_matmul_np(G, X)
+    pallas = _pallas_ladder(G, X)
+    plain = tref.gf256_matmul_ladder_ref(G, torch.from_numpy(X))
+    assert plain.dtype == torch.uint8
+    # on a CPU tensor backend="ladder" runs the plain ladder
+    dispatched = tops.gf256_matmul(G, torch.from_numpy(X),
+                                   backend="ladder").numpy()
+    assert np.array_equal(pallas, want)
+    assert np.array_equal(plain.numpy(), want)
+    assert np.array_equal(dispatched, want)
+
+
+def test_plain_ladder_takes_views_and_tensor_coefficients():
+    from repro.kernels.rs_gf256.ref import gf_matmul_np
+    G, X = _operands(5, 6, 301, 21)
+    Xt = torch.from_numpy(X)
+    for off, L in [(1, 101), (3, 37), (0, 301)]:
+        view = Xt[:, off:off + L]
+        got = tref.gf256_matmul_ladder_ref(torch.from_numpy(G), view)
+        assert np.array_equal(got.numpy(), gf_matmul_np(G, X[:, off:off + L]))
+    with pytest.raises(ValueError):
+        tref.gf256_matmul_ladder_ref(G, Xt[:5])
+
+
+def test_backend_dispatch_mirrors_reference_names():
+    from repro.kernels.rs_gf256.ref import gf_matmul_np
+    G, X = _operands(3, 4, 77, 13)
+    want = gf_matmul_np(G, X)
+    Xt = torch.from_numpy(X)
+    for backend in ("auto", "bitsliced", "ladder", "ref"):
+        assert np.array_equal(
+            tops.gf256_matmul(G, Xt, backend=backend).numpy(), want), backend
+    # "pallas" is "bitsliced" here; "interpret" has no counterpart
+    for backend in ("interpret", "pallas", "numpy", ""):
+        with pytest.raises(ValueError, match="backend"):
+            tops.gf256_matmul(G, Xt, backend=backend)
+    with pytest.raises(TypeError):
+        tops.gf256_matmul(G, X, backend="ladder")     # numpy: not a tensor
+    with pytest.raises(ValueError):                  # the kernel needs CUDA
+        tkernel.gf256_matmul_ladder_cuda(G, Xt)
+
+
+def test_operand_cache_keeps_planes_and_coefficients_apart():
+    G, _ = _operands(2, 3, 1, 14)
+    planes, coeffs = tkernel.planes_for(G, "cpu"), tkernel.coeffs_for(G, "cpu")
+    assert tkernel.coeffs_for(G.copy(), "cpu") is coeffs
+    assert coeffs.dtype == torch.int32 and coeffs.shape == (2, 3)
+    assert np.array_equal(coeffs.numpy(), G.astype(np.int32))
+    assert planes.shape == (2, 3, 8)
 
 
 @pytest.mark.cuda
@@ -151,3 +225,26 @@ def test_kernel_matches_plain_on_card(cuda_device):
                 assert torch.equal(got, want), (m, k, L, off)
                 calls += 1
     assert tkernel.launches - before == calls
+
+
+@pytest.mark.cuda
+def test_ladder_kernel_matches_plain_and_bitsliced_on_card(cuda_device):
+    rng = np.random.default_rng(6)
+    before = tkernel.ladder_launches
+    calls = 0
+    for m, k in LADDER_SWEEP + [(17, 20)]:
+        for L in [1, 3, 100, 1024, 2125, 65539]:
+            G = rng.integers(0, 256, (m, k), dtype=np.uint8)
+            base = torch.from_numpy(
+                rng.integers(0, 256, (k, L + 5), dtype=np.uint8)
+            ).to(cuda_device)
+            for off in (0, 1, 3):                # strided column slices
+                X = base[:, off:off + L]
+                got = tops.gf256_matmul(G, X, backend="ladder")
+                want = tref.gf256_matmul_ladder_ref(G, X)
+                bitsliced = tops.gf256_matmul(G, X, backend="bitsliced")
+                torch.cuda.synchronize()
+                assert torch.equal(got, want), (m, k, L, off)
+                assert torch.equal(got, bitsliced), (m, k, L, off)
+                calls += 1
+    assert tkernel.ladder_launches - before == calls

@@ -1,6 +1,7 @@
 """The port stands alone: nothing under src/repro_torch/ and not
 chip_smoke.py imports jax or the JAX package, importing the store, the
-serving stack, the models and the configs leaves jax out of sys.modules,
+serving stack, the models, the configs and the training stack leaves
+jax out of sys.modules,
 and the default device of the store and of the serving engine (the
 card) is refused — never silently replaced by the CPU — where CUDA is
 absent."""
@@ -56,6 +57,12 @@ def test_serving_import_leaves_jax_unloaded():
     _imports_leave_jax_unloaded(
         "repro_torch.serving, repro_torch.models, repro_torch.configs, "
         "repro_torch.launch.serve, repro_torch.models.convert")
+
+
+def test_training_import_leaves_jax_unloaded():
+    _imports_leave_jax_unloaded(
+        "repro_torch.launch.train, repro_torch.launch.steps, "
+        "repro_torch.checkpoint, repro_torch.optim, repro_torch.data")
 
 
 def test_default_store_raises_without_cuda():
