@@ -42,6 +42,11 @@ points:
 Every phase asserts; any failure exits non-zero. Prints timing lines,
 one `kernels` JSON line and, last, `{"ok": true, "device": {...}}`.
 
+With `--baseline DIR` (a checkout of the commit before the RMSNorm and
+paged-attention redesign), it also builds those two kernels' earlier
+designs and prints their times beside the current ones, in turns on the
+same card.
+
 Exits non-zero with no result where CUDA is unavailable or the package
 is not beside this script.
 """
@@ -111,6 +116,94 @@ def bound(nbytes: int, ops: int = 0, bytes_per_s: float = HBM_BYTES_PER_S,
     return max(t_bytes, t_ops), "operations" if t_ops > t_bytes else "bytes"
 
 
+def cold_ms(fn, reps: int, scrub_bytes: int = 128 * MB) -> float:
+    """Mean device time of `fn` with the L2 cache flushed before each
+    run: a buffer larger than L2 (50 MB) is written between runs, and
+    only the run itself lies between each pair of CUDA events. A spin
+    kernel ahead of each flush lets the host enqueue the run before the
+    device reaches its start event."""
+    import torch
+    scrub = torch.empty(scrub_bytes, dtype=torch.uint8, device="cuda")
+    fn()
+    marks = []
+    for _ in range(reps):
+        torch.cuda._sleep(200_000)          # ~0.1 ms of device cycles
+        scrub.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        marks.append((start, end))
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in marks) / reps
+
+
+class EarlierDesigns:
+    """The RMSNorm and paged decode-attention kernels as they were before
+    their Hopper redesign, built from a checkout of that
+    commit (`--baseline DIR`) and called through their own C entry
+    points, so that one run times the earlier and the current design on
+    one card. Nothing counts their launches; they are timed only."""
+    RMS = "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu"
+    PA = "src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu"
+    DTYPES = ("float32", "bfloat16")       # the kernels' type codes 0, 1
+
+    def __init__(self, root: Path):
+        import ctypes as C
+        from repro_torch.kernels import _build
+        rms, pa = _build.build_many([root / self.RMS, root / self.PA])
+        self._rms = C.CDLL(str(rms)).rmsnorm_forward
+        self._rms.argtypes = [C.c_void_p] * 3 + [
+            C.c_longlong, C.c_int, C.c_float, C.c_int, C.c_int, C.c_int,
+            C.c_void_p]
+        self._rms.restype = C.c_int
+        self._pa = C.CDLL(str(pa)).paged_attention_forward
+        self._pa.argtypes = [C.c_void_p] * 8 + [C.c_int] * 8 + [
+            C.c_float, C.c_int, C.c_void_p]
+        self._pa.restype = C.c_int
+
+    def _code(self, t) -> int:
+        return self.DTYPES.index(str(t.dtype).split(".")[-1])
+
+    def rms_norm(self, x, w, eps):
+        import torch
+        out = torch.empty_like(x)
+        d = x.shape[-1]
+        vec = int(d * x.element_size() % 16 == 0 and all(
+            t.data_ptr() % 16 == 0 for t in (x, w, out)))
+        rc = self._rms(x.data_ptr(), w.data_ptr(), out.data_ptr(),
+                       x.numel() // d, d, eps, self._code(x),
+                       self._code(w), vec,
+                       torch.cuda.current_stream().cuda_stream)
+        assert rc == 0, rc
+        return out
+
+    def paged(self, q, kc, vc, table, lens):
+        """Its split rule as it was: blocks of 4 query heads, splits up
+        to 4 blocks per SM."""
+        import torch
+        B, H, hd = q.shape
+        _, P, ps, K, _ = kc.shape
+        G = H // K
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        splits = max(1, min(P, -(-4 * sms // (B * K * -(-G // 4)))))
+        pps = -(-P // splits)
+        splits = -(-P // pps)
+        part_acc = torch.empty((B, K, splits, G, hd), dtype=torch.float32,
+                               device=q.device)
+        part_ml = torch.empty((B, K, splits, G, 2), dtype=torch.float32,
+                              device=q.device)
+        out = torch.empty_like(q)
+        rc = self._pa(q.data_ptr(), kc.data_ptr(), vc.data_ptr(),
+                      table.data_ptr(), lens.data_ptr(), part_acc.data_ptr(),
+                      part_ml.data_ptr(), out.data_ptr(), B, P, ps, K, G, hd,
+                      splits, pps, 1.0 / hd ** 0.5, self._code(q),
+                      torch.cuda.current_stream().cuda_stream)
+        assert rc == 0, rc
+        return out
+
+
 def gf_bound_ms(m: int, k: int, L: int):
     """Least time for one (m,k) x (k,L) GF(256) product on the card: each
     input byte (X and the planes) read once, each output byte written
@@ -132,17 +225,28 @@ PROFILE_STEPS = 3                # decode steps under torch.profiler
 LOGIT_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 RMS_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 PA_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
+# (B, P, ps, K, G, hd): the reference's sweep, the main path's shape,
+# then G = 1, G = 8 and G = 12 (two head groups), pages of 16 and 128,
+# hd 64 (f32 and bf16 alike) and hd 8
 PA_CASES = [(1, 2, 4, 1, 1, 8), (2, 4, 8, 2, 2, 16), (3, 5, 8, 2, 3, 16),
-            (2, 8, 16, 4, 1, 32), (SLOTS, MAX_LEN // PAGE, PAGE, 8, 2, 128)]
+            (2, 8, 16, 4, 1, 32), (SLOTS, MAX_LEN // PAGE, PAGE, 8, 2, 128),
+            (3, 6, 64, 4, 1, 128), (2, 12, 16, 2, 8, 128),
+            (2, 5, 128, 2, 2, 128), (2, 4, 16, 1, 12, 64),
+            (2, 3, 128, 2, 2, 64), (2, 4, 8, 2, 2, 8)]
+# the main path's shapes, then every layout of the kernel's planner:
+# d_model 896 to 8192, a row beyond the register tile (20000), d = 64,
+# rows of 24 bytes in bf16 (the scalar path) and an unaligned view
 RMS_SHAPES = [(4, 128), (3, 7, 256), (1, 512), (300, 64),
               (SLOTS, 1, 2048), (SLOTS, 1, 16, 128), (SLOTS, 1, 8, 128),
               (SLOTS, PROMPT, 2048), (SLOTS, PROMPT, 16, 128),
-              (SLOTS, PROMPT, 8, 128)]
+              (SLOTS, PROMPT, 8, 128), (5, 896), (4096, 1024), (3, 5120),
+              (2, 8192), (3, 20000), (3, 64), (4, 7, 12)]
 
 
-def paged_case(dev, dtype, B, P, ps, K, G, hd, seed):
+def paged_case(dev, dtype, B, P, ps, K, G, hd, seed, lens=None):
     """Seeded inputs on the card: random page permutations, ragged lens
-    (the first sequence at one token, the last at the full pool)."""
+    (the first sequence at one token, the last at the full pool) unless
+    `lens` is given."""
     import numpy as np
     import torch
     rng = np.random.default_rng(seed)
@@ -153,9 +257,11 @@ def paged_case(dev, dtype, B, P, ps, K, G, hd, seed):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
     tbl = np.stack([rng.permutation(P) for _ in range(B)]).astype(np.int32)
-    lens = rng.integers(1, P * ps + 1, B).astype(np.int32)
-    lens[0] = 1
-    lens[-1] = P * ps
+    if lens is None:
+        lens = rng.integers(1, P * ps + 1, B)
+        lens[0] = 1
+        lens[-1] = P * ps
+    lens = np.asarray(lens, dtype=np.int32)
     return (randn(B, K * G, hd), randn(B, P, ps, K, hd),
             randn(B, P, ps, K, hd), torch.from_numpy(tbl).to(dev),
             torch.from_numpy(lens).to(dev))
@@ -163,9 +269,13 @@ def paged_case(dev, dtype, B, P, ps, K, G, hd, seed):
 
 def kernel_checks(dev) -> dict:
     """Phase 6: RMSNorm and paged decode attention against their plain
-    versions on the card, over the reference tests' sweeps and the main
-    path's shapes, f32 and bf16. Returns each kernel's max abs error."""
+    versions on the card, over the reference tests' sweeps, the main
+    path's shapes and every layout and split boundary of the two
+    kernels' designs, f32 and bf16. Returns each kernel's max abs
+    error."""
     import torch
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.paged_attention import kernel as pa_kernel
     from repro_torch.kernels.paged_attention.ops import \
         paged_decode_attention
     from repro_torch.kernels.paged_attention.ref import \
@@ -174,15 +284,19 @@ def kernel_checks(dev) -> dict:
     from repro_torch.kernels.rmsnorm.ref import rms_norm_ref
     torch.backends.cuda.matmul.allow_tf32 = False
     err = {}
+    n_rms = n_pa = 0
     for dname in ("float32", "bfloat16"):
         dtype = getattr(torch, dname)
         worst = 0.0
-        for i, shape in enumerate(RMS_SHAPES):
+        for i, shape in enumerate(RMS_SHAPES + [(9, 65)]):
             gen = torch.Generator(device=dev)
             gen.manual_seed(i)
             x = torch.randn(shape, generator=gen, device=dev).to(dtype)
             scale = (torch.randn(shape[-1:], generator=gen, device=dev)
                      * 0.1 + 1.0).to(dtype)
+            if shape == (9, 65):      # rows not 16-byte aligned: scalar
+                x, scale = x.flatten()[1:1 + 9 * 64].view(9, 64), scale[1:]
+            n_rms += 1
             got, want = rms_norm_op(x, scale), rms_norm_ref(x, scale)
             torch.cuda.synchronize()
             assert got.dtype == dtype and got.shape == x.shape
@@ -194,22 +308,34 @@ def kernel_checks(dev) -> dict:
         err[("rmsnorm", dname)] = worst
         worst = 0.0
         for i, case in enumerate(PA_CASES):
-            args = paged_case(dev, dtype, *case, seed=i)
-            got = paged_decode_attention(*args)
-            want = paged_decode_attention_ref(*args)
-            torch.cuda.synchronize()
-            assert got.dtype == dtype and torch.isfinite(got.float()).all()
-            torch.testing.assert_close(got.float(), want,
-                                       atol=PA_TOL[dname],
-                                       rtol=PA_TOL[dname])
-            worst = max(worst, float((got.float() - want).abs().max()))
+            B, P, ps, K, G, hd = case
+            # lens that end on a page boundary and where a split ends
+            _, pps = pa_kernel.split_pages(
+                B, K, G, P, _build.sm_count(dev), pa_kernel._blocks_per_sm(
+                    dev, hd, G, pa_kernel.DTYPES[dtype], P))
+            edges = [max(1, P // 2) * ps if j % 2 else min(P, pps) * ps
+                     for j in range(B)]
+            for lens in (None, edges):
+                args = paged_case(dev, dtype, *case, seed=i, lens=lens)
+                got = paged_decode_attention(*args)
+                want = paged_decode_attention_ref(*args)
+                torch.cuda.synchronize()
+                assert got.dtype == dtype and \
+                    torch.isfinite(got.float()).all()
+                torch.testing.assert_close(got.float(), want,
+                                           atol=PA_TOL[dname],
+                                           rtol=PA_TOL[dname])
+                worst = max(worst, float((got.float() - want).abs().max()))
+                n_pa += 1
         err[("paged_decode_attention", dname)] = worst
     print(f"phase 6 kernels vs plain on the card: rmsnorm over "
-          f"{len(RMS_SHAPES)} shapes, max_abs_err f32 "
+          f"{n_rms} checks ({len(RMS_SHAPES)} shapes and an unaligned view "
+          f"in f32 and bf16, the scale in x's type), max_abs_err f32 "
           f"{err[('rmsnorm', 'float32')]:.3e} (tol 1e-5), bf16 "
           f"{err[('rmsnorm', 'bfloat16')]:.3e} (tol 2e-2); paged decode "
-          f"attention over {len(PA_CASES)} shapes (permuted tables, ragged"
-          f" lens), max_abs_err f32 "
+          f"attention over {n_pa} checks ({len(PA_CASES)} shapes x "
+          f"(ragged lens; lens ending on a page and on a split boundary) "
+          f"in f32 and bf16, permuted tables), max_abs_err f32 "
           f"{err[('paged_decode_attention', 'float32')]:.3e} (tol 2e-5), "
           f"bf16 {err[('paged_decode_attention', 'bfloat16')]:.3e} "
           f"(tol 3e-2)")
@@ -269,10 +395,11 @@ def kv_bytes(cfg, B: int, tokens: int, elem: int = 2) -> int:
         * cfg.head_dim * elem
 
 
-def serve(dev, work, card) -> dict:
+def serve(dev, work, card, earlier=None) -> dict:
     """Phases 7 and 8: Qwen3-1.7B served at full width over the SMS-paged
     KV cache, the plain-path comparisons, KV eviction through the store,
-    and the new kernels' timings. Returns launches and timings."""
+    and the new kernels' timings (beside the earlier designs' where
+    `earlier` holds them). Returns launches and timings."""
     import dataclasses
 
     import numpy as np
@@ -280,6 +407,7 @@ def serve(dev, work, card) -> dict:
     import torch.nn.functional as F
     from repro_torch.configs import get_config
     from repro_torch.core import InfiniStore, StoreConfig
+    from repro_torch.kernels import _build
     from repro_torch.kernels.paged_attention import kernel as pa_kernel
     from repro_torch.kernels.paged_attention.ref import \
         paged_decode_attention_ref
@@ -514,8 +642,10 @@ def serve(dev, work, card) -> dict:
         return F.scaled_dot_product_attention(
             q[:, :, None], kf, vf, attn_mask=mask, enable_gqa=True)
 
-    ms = event_ms(lambda: pa_kernel.paged_decode_attention_cuda(
-        q, kc, vc, table, lens), reps=50)
+    def paged():
+        return pa_kernel.paged_decode_attention_cuda(q, kc, vc, table, lens)
+
+    ms = event_ms(paged, reps=50)
     plain = event_ms(lambda: paged_decode_attention_ref(q, kc, vc, table,
                                                         lens), reps=5)
     lib_ms = event_ms(sdpa, reps=10)
@@ -523,12 +653,27 @@ def serve(dev, work, card) -> dict:
     timing["paged_decode_attention"] = dict(ms=ms, plain_ms=plain,
                                             bound_ms=b_ms, bound_by=by,
                                             library_ms=lib_ms)
+    side = ""
+    if earlier is not None:       # earlier, current, current, earlier
+        old = [event_ms(lambda: earlier.paged(q, kc, vc, table, lens),
+                        reps=50)]
+        again = event_ms(paged, reps=50)
+        old.append(event_ms(lambda: earlier.paged(q, kc, vc, table, lens),
+                            reps=50))
+        side = (f" | earlier design {old[0] * 1e3:.1f} / "
+                f"{old[1] * 1e3:.1f} us against {ms * 1e3:.1f} / "
+                f"{again * 1e3:.1f} us, in turns")
+    occ = pa_kernel._blocks_per_sm(dev, hd, cfg.num_heads // K,
+                                   pa_kernel.DTYPES[q.dtype], P)
+    splits, pps = pa_kernel.split_pages(B, K, cfg.num_heads // K, P,
+                                        _build.sm_count(dev), occ)
     print(f"kernel paged_decode_attention (B={B}, H={cfg.num_heads}, "
-          f"K={K}, hd={hd}, {P} pages of {ps}, lens {length}, bf16): "
-          f"{ms * 1e3:.1f} us | bound {b_ms * 1e3:.1f} us by {by} "
-          f"({pa_bytes} bytes, {pa_flops} flops) | plain {plain * 1e3:.1f} "
-          f"us | _gather_pages + sdpa(enable_gqa) {lib_ms * 1e3:.1f} us | "
-          f"{card}")
+          f"K={K}, hd={hd}, {P} pages of {ps}, lens {length}, bf16; "
+          f"{occ} blocks per SM, {splits} splits of {pps} pages): "
+          f"{ms * 1e3:.1f} us = {100 * b_ms / ms:.1f}% of its bound | "
+          f"bound {b_ms * 1e3:.1f} us by {by} ({pa_bytes} bytes, "
+          f"{pa_flops} flops) | plain {plain * 1e3:.1f} us | _gather_pages "
+          f"+ sdpa(enable_gqa) {lib_ms * 1e3:.1f} us{side} | {card}")
 
     # RMSNorm at its three main-path shapes; the prefill's ln is the one
     # the kernels line carries
@@ -544,18 +689,39 @@ def serve(dev, work, card) -> dict:
                       reps=50)
         plain = event_ms(lambda: rms_norm_ref(x, w, cfg.rms_eps), reps=10)
         lib_ms = event_ms(lambda: F.rms_norm(x, (shape[-1],), w,
-                                             cfg.rms_eps), reps=10)
+                                             cfg.rms_eps), reps=50)
+        dst = torch.empty_like(x)          # a copy moves the same bytes
+        copy_ms = event_ms(lambda: dst.copy_(x), reps=50)
         nbytes = 2 * x.numel() * 2 + w.numel() * 2
         b_ms, by = bound(nbytes, 3 * x.numel(), ops_per_s=F32_FLOPS_PER_S)
         if label == "prefill ln":
             timing["rmsnorm"] = dict(ms=ms, plain_ms=plain, bound_ms=b_ms,
                                      bound_by=by, library_ms=lib_ms)
-        print(f"kernel rmsnorm {label} {shape} bf16: {ms * 1e3:.2f} us | "
+        lay = rms_kernel.plan(shape[-1], 2, True, x.numel() // shape[-1],
+                              _build.sm_count(dev))
+        print(f"kernel rmsnorm {label} {shape} bf16 ({lay}): "
+              f"{ms * 1e3:.2f} us = {100 * b_ms / ms:.1f}% of its bound | "
               f"bound {b_ms * 1e3:.2f} us by {by} ({nbytes} bytes) | plain "
               f"{plain * 1e3:.2f} us | F.rms_norm {lib_ms * 1e3:.2f} us | "
-              f"{card}")
+              f"device copy of x {copy_ms * 1e3:.2f} us"
+              f"{rms_earlier(earlier, x, w, cfg.rms_eps, ms)} | {card}")
     return {"launches": launches, "timing": timing,
             "gf_evict_launches": gf_evict}
+
+
+def rms_earlier(earlier, x, w, eps, ms) -> str:
+    """The earlier RMSNorm design's time beside the current one's, timed
+    in turns (earlier, current, earlier), as text; empty without
+    `earlier`."""
+    if earlier is None:
+        return ""
+    from repro_torch.kernels.rmsnorm import kernel as rms_kernel
+    old = [event_ms(lambda: earlier.rms_norm(x, w, eps), reps=50)]
+    again = event_ms(lambda: rms_kernel.rms_norm_cuda(x, w, eps), reps=50)
+    old.append(event_ms(lambda: earlier.rms_norm(x, w, eps), reps=50))
+    return (f" | earlier design {old[0] * 1e3:.2f} / "
+            f"{old[1] * 1e3:.2f} us against {ms * 1e3:.2f} / "
+            f"{again * 1e3:.2f} us, in turns")
 
 
 def decode_on(eng, cache, tok, steps):
@@ -696,7 +862,7 @@ def train_flops(cfg, tokens: int, seq: int, n_params: int) -> int:
 # CUTLASS), reductions, indexing (the embedding's gather and its
 # scatter-add backward), copies, then PyTorch's elementwise kernels
 TRAIN_KERNEL_KINDS = [
-    ("rmsnorm kernel", ("rmsnorm_kernel",)),
+    ("rmsnorm kernel", ("rmsnorm_tile", "rmsnorm_loop")),
     ("matrix products", ("gemm", "nvjet", "cutlass", "xmma", "cublas")),
     ("reductions", ("reduce_kernel", "softmax", "norm_kernel")),
     ("indexing", ("index", "scatter", "gather")),
@@ -766,12 +932,13 @@ def profile_train_step(dev, cfg, shape, median: float, card: str) -> None:
           f"top: {top} | {card}")
 
 
-def train_phase(dev, card: str, cfg) -> dict:
+def train_phase(dev, card: str, cfg, earlier=None) -> dict:
     """Phase 10: `cfg` (Qwen1.5-0.5B at full width and depth) trained on
     the card, with a checkpoint through the store and a resume after
     every other slab is reclaimed. Returns launches and timings."""
     import numpy as np
     import torch
+    import torch.nn.functional as F
     from repro_torch.checkpoint import Checkpointer
     from repro_torch.checkpoint.checkpointer import _leaf_paths
     from repro_torch.configs import ShapeConfig
@@ -987,17 +1154,44 @@ def train_phase(dev, card: str, cfg) -> dict:
     x = torch.randn((rows, cfg.d_model), device=dev, dtype=torch.bfloat16)
     dy = torch.randn_like(x)
     w = torch.ones(cfg.d_model, device=dev, dtype=torch.bfloat16)
-    ms = event_ms(lambda: rms_kernel.rms_norm_cuda(x, w, cfg.rms_eps),
-                  reps=50)
+
+    def kern():
+        return rms_kernel.rms_norm_cuda(x, w, cfg.rms_eps)
+
+    def lib():
+        return F.rms_norm(x, (cfg.d_model,), w, cfg.rms_eps)
+
+    # the input (8 MB) fits in L2: timed as it is (hot, the run before
+    # leaves it there) and with L2 flushed before each run (cold)
+    dst = torch.empty_like(x)              # a copy moves the same bytes
+    ms, lib_ms = event_ms(kern, reps=50), event_ms(lib, reps=50)
+    copy_ms = event_ms(lambda: dst.copy_(x), reps=50)
+    # cold times drift within a run: the kernel's is taken first and
+    # again last, around the others
+    cold = [cold_ms(kern, reps=50)]
+    lib_cold = cold_ms(lib, reps=50)
+    copy_cold = cold_ms(lambda: dst.copy_(x), reps=50)
+    old_cold = None if earlier is None else cold_ms(
+        lambda: earlier.rms_norm(x, w, cfg.rms_eps), reps=50)
+    cold.append(cold_ms(kern, reps=50))
     plain = event_ms(lambda: rms_norm_ref(x, w, cfg.rms_eps), reps=20)
     bwd = event_ms(lambda: rms_norm_backward(x, w, cfg.rms_eps, dy),
                    reps=20)
     nbytes = 2 * x.numel() * 2 + w.numel() * 2
     rb_ms, rby = bound(nbytes, 3 * x.numel(), ops_per_s=F32_FLOPS_PER_S)
-    print(f"kernel rmsnorm train ln ({rows}, {cfg.d_model}) bf16: "
-          f"{ms * 1e3:.2f} us | bound {rb_ms * 1e3:.2f} us by {rby} | "
-          f"plain {plain * 1e3:.2f} us | backward (plain torch, dx and "
-          f"dscale) {bwd * 1e3:.2f} us | {card}")
+    side = ""
+    if earlier is not None:
+        side = (f"{rms_earlier(earlier, x, w, cfg.rms_eps, ms)} (hot); "
+                f"L2 flushed {old_cold * 1e3:.2f} us")
+    print(f"kernel rmsnorm train ln ({rows}, {cfg.d_model}) bf16: hot "
+          f"{ms * 1e3:.2f} us, L2 flushed {cold[0] * 1e3:.2f} / "
+          f"{cold[1] * 1e3:.2f} us (first / last) | bound "
+          f"{rb_ms * 1e3:.2f} us by {rby} | plain {plain * 1e3:.2f} us | "
+          f"F.rms_norm hot {lib_ms * 1e3:.2f} us, L2 flushed "
+          f"{lib_cold * 1e3:.2f} us | device copy of x hot "
+          f"{copy_ms * 1e3:.2f} us, L2 flushed {copy_cold * 1e3:.2f} us | "
+          f"backward (plain torch, dx and "
+          f"dscale) {bwd * 1e3:.2f} us{side} | {card}")
     launches = {"rmsnorm_step1": rms_one, "rmsnorm_straight": rms_straight,
                 "gf256_save": gf_save, "gf256_resume": gf_restore,
                 "recoveries_resume": recoveries,
@@ -1008,7 +1202,14 @@ def train_phase(dev, card: str, cfg) -> dict:
             "grad_err": max(grad_err.values())}
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description="Drive the port on one GPU.")
+    ap.add_argument("--baseline", type=Path, default=None, metavar="DIR",
+                    help="a checkout of the commit before the RMSNorm and "
+                    "paged-attention redesign: its two kernels are built "
+                    "too and timed beside the current ones")
+    args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false",
@@ -1040,10 +1241,15 @@ def main() -> int:
     from repro_torch.kernels.paged_attention import kernel as pa_kernel
     from repro_torch.kernels.rmsnorm import kernel as rms_kernel
     t0 = time.perf_counter()
-    libs = _build.build_many([kernel.SOURCE, kernel.LADDER_SOURCE,
-                              rms_kernel.SOURCE, pa_kernel.SOURCE])
+    sources = [kernel.SOURCE, kernel.LADDER_SOURCE, rms_kernel.SOURCE,
+               pa_kernel.SOURCE]
+    if args.baseline is not None:
+        base = args.baseline.resolve()
+        sources += [base / EarlierDesigns.RMS, base / EarlierDesigns.PA]
+    libs = _build.build_many(sources)
     print(f"build: {', '.join(str(lib.relative_to(ROOT)) for lib in libs)}"
           f" in {time.perf_counter() - t0:.3f} s (in parallel)")
+    earlier = EarlierDesigns(base) if args.baseline is not None else None
 
     work = ROOT / "build" / "repro_torch" / "smoke"
     shutil.rmtree(work, ignore_errors=True)
@@ -1296,7 +1502,7 @@ def main() -> int:
 
     # ---- phases 6-8: serving -------------------------------------------
     checks = kernel_checks(dev)
-    serving = serve(dev, work, card)
+    serving = serve(dev, work, card, earlier)
     shutil.rmtree(work, ignore_errors=True)
     torch.cuda.empty_cache()
 
@@ -1312,7 +1518,7 @@ def main() -> int:
             cfg15.vocab_size, cfg15.qkv_bias, cfg15.tie_embeddings,
             cfg15.dtype) == (24, 1024, 16, 16, 64, 2816, 151936, True,
                              True, "bfloat16")
-    training = train_phase(dev, card, cfg15)
+    training = train_phase(dev, card, cfg15, earlier)
 
     enc = timing["encode"]
     print(json.dumps({"kernels": [{

@@ -15,12 +15,30 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Iterable, List
+
+import torch
 
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+
+_sm_counts: dict = {}
+_sm_lock = threading.Lock()
+
+
+def sm_count(device) -> int:
+    """Streaming multiprocessors of a CUDA device (asked once per
+    device): the kernels' launch planners size their grids by it."""
+    with _sm_lock:
+        n = _sm_counts.get(device.index)
+        if n is None:
+            n = torch.cuda.get_device_properties(device).multi_processor_count
+            _sm_counts[device.index] = n
+        return n
 
 
 def nvcc() -> str:

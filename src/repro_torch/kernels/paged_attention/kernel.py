@@ -1,6 +1,6 @@
 """Hopper CUDA kernel: single-token GQA decode attention over a paged KV
 pool (flash-decoding: a partial kernel per split of the page walk, then
-a combine kernel).
+a combine kernel when there is more than one split).
 
 Replaces the JAX package's `paged_attention/kernel.py::_kernel`; the
 design and its bound are described at the top of
@@ -28,13 +28,12 @@ from repro_torch.kernels import _build
 SOURCE = Path(__file__).resolve().parent / "csrc" / "paged_attention.cu"
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}   # the kernel's type codes
 HEAD_DIMS = (8, 16, 32, 64, 128)
-G_PER_BLOCK = 4                  # query heads per kv head in one block
-BLOCKS_PER_SM = 4                # splits are chosen to reach this many
+HEAD_GROUPS = (1, 2, 4, 8)       # query heads one block takes (templated)
 
 launches = 0                     # calls that launched the kernels
-_lock = threading.Lock()         # guards the library, `launches`, SM counts
+_lock = threading.Lock()         # guards the library, `launches`, caches
 _lib = None
-_sm_count: dict = {}
+_occupancy: dict = {}            # (device, hd, G, dtype, P) -> blocks/SM
 
 
 def build() -> Path:
@@ -49,28 +48,57 @@ def _load():
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
             fn = lib.paged_attention_forward
-            fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [
+            fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [
                 ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
             fn.restype = ctypes.c_int
+            occ = lib.paged_attention_blocks_per_sm
+            occ.argtypes = [ctypes.c_int] * 4 + [
+                ctypes.POINTER(ctypes.c_int)]
+            occ.restype = ctypes.c_int
             _lib = lib
         return _lib
 
 
-def _sms(device: torch.device) -> int:
+def _blocks_per_sm(device: torch.device, hd: int, G: int, dtype: int,
+                   P: int) -> int:
+    """Blocks of the partial kernel that fit on one SM: the split rule's
+    occupancy, asked of CUDA's occupancy calculator once per device and
+    shape."""
+    key = (device.index, hd, G, dtype, P)
     with _lock:
-        n = _sm_count.get(device.index)
-        if n is None:
-            n = torch.cuda.get_device_properties(device).multi_processor_count
-            _sm_count[device.index] = n
-        return n
+        n = _occupancy.get(key)
+    if n is None:
+        lib = _load()
+        got = ctypes.c_int(0)
+        with torch.cuda.device(device):
+            rc = lib.paged_attention_blocks_per_sm(hd, head_group(G), dtype,
+                                                   P, ctypes.byref(got))
+        if rc != 0:
+            raise RuntimeError(f"paged_attention_blocks_per_sm failed: CUDA "
+                               f"error {rc}")
+        n = got.value
+        if n < 1:
+            raise RuntimeError(f"the paged attention kernel does not fit on "
+                               f"an SM (hd {hd}, G {G}, {P} pages)")
+        with _lock:
+            _occupancy[key] = n
+    return n
 
 
-def split_pages(B: int, K: int, G: int, P: int, sms: int):
-    """(splits, pages_per_split): split each sequence's page walk until
-    the (b, kv head, head group, split) blocks reach BLOCKS_PER_SM per
-    SM, with whole pages per split and no empty trailing split."""
-    pairs = B * K * -(-G // G_PER_BLOCK)
-    splits = max(1, min(P, -(-BLOCKS_PER_SM * sms // pairs)))
+def head_group(G: int) -> int:
+    """Query heads per block: G rounded up to 1, 2, 4 or 8 (larger G
+    takes several head groups); the kernel is instantiated for each."""
+    return next(g for g in HEAD_GROUPS if g >= min(G, HEAD_GROUPS[-1]))
+
+
+def split_pages(B: int, K: int, G: int, P: int, sms: int,
+                blocks_per_sm: int):
+    """(splits, pages_per_split): split each sequence's page walk into
+    as many runs of whole pages as keep every (b, kv head, head group,
+    split) block in one wave of `blocks_per_sm` x `sms` blocks, with no
+    empty trailing split. One split when the pairs alone fill a wave."""
+    pairs = B * K * -(-G // head_group(G))
+    splits = max(1, min(P, sms * max(1, blocks_per_sm) // pairs))
     pps = -(-P // splits)
     return -(-P // pps), pps
 
@@ -125,19 +153,24 @@ def paged_decode_attention_cuda(q: torch.Tensor, k_pool: torch.Tensor,
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    splits, pps = split_pages(B, K, G, P, _sms(q.device))
-    part_acc = torch.empty((B, K, splits, G, hd), dtype=torch.float32,
-                           device=q.device)
-    part_ml = torch.empty((B, K, splits, G, 2), dtype=torch.float32,
-                          device=q.device)
     lib = _load()
+    occupancy = _blocks_per_sm(q.device, hd, G, DTYPES[q.dtype], P)
+    splits, pps = split_pages(B, K, G, P, _build.sm_count(q.device),
+                              occupancy)
+    # partial softmaxes of the splits; one split writes `out` itself
+    n = splits if splits > 1 else 0
+    part_acc = torch.empty((B, K, n, G, hd), dtype=torch.float32,
+                           device=q.device)
+    part_ml = torch.empty((B, K, n, G, 2), dtype=torch.float32,
+                          device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.paged_attention_forward(
             q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
             block_table.data_ptr(), lens.data_ptr(), part_acc.data_ptr(),
-            part_ml.data_ptr(), out.data_ptr(), B, P, ps, K, G, hd, splits,
-            pps, 1.0 / math.sqrt(hd), DTYPES[q.dtype], stream)
+            part_ml.data_ptr(), out.data_ptr(), B, P, ps, K, G,
+            head_group(G), hd, splits, pps, 1.0 / math.sqrt(hd),
+            DTYPES[q.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"paged_attention_forward launch failed: CUDA "
                            f"error {rc}")

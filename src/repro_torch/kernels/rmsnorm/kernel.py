@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import ctypes
 import threading
+from dataclasses import dataclass
 from pathlib import Path
 
 import torch
@@ -24,9 +25,69 @@ from repro_torch.kernels import _build
 SOURCE = Path(__file__).resolve().parent / "csrc" / "rmsnorm.cu"
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}   # the kernel's type codes
 
+MAX_VEC = 8          # 16-byte vectors one lane holds in registers
+MAX_WARPS = 8        # warps that share one row of the register tile
+PACK_BYTES = 256     # rows up to this width share a warp
+BLOCK = 128          # threads per block of the packed and one-warp layouts
+LOOP_THREADS = 256   # threads per row of the loop kernels, at most
+
 launches = 0                     # kernel launches made by this process
 _lock = threading.Lock()         # guards the library and `launches`
 _lib = None
+
+
+@dataclass(frozen=True)
+class Layout:
+    """How the kernel lays a (rows, d) input on the card (the C entry
+    point's `kind`, `vec`, `lanes`, `warps`, `rpb`, `threads`)."""
+    kind: str       # "tile" (register tile), "loop" (16-byte), "scalar"
+    vec: int        # 16-byte vectors per lane (tile), else 0
+    lanes: int      # lanes per row: < 32 packs 32 // lanes rows in a warp
+    warps: int      # warps per row
+    rpb: int        # rows per block
+    threads: int    # threads per block
+
+    @property
+    def code(self) -> int:
+        return {"tile": 0, "loop": 1, "scalar": 2}[self.kind]
+
+
+def _pow2_at_least(n: int) -> int:
+    return 1 << max(0, n - 1).bit_length()
+
+
+def plan(d: int, elem: int, aligned: bool = True, rows: int = 0,
+         sms: int = 0) -> Layout:
+    """The layout for `rows` rows of `d` elements of `elem` bytes on a
+    card of `sms` SMs.
+
+    16-byte access (`aligned`, and a row a multiple of 16 bytes) takes
+    the register tile while a row fits in MAX_WARPS warps x MAX_VEC
+    vectors a lane: rows of at most PACK_BYTES share a warp, rows of at
+    most 32 x MAX_VEC vectors take one warp, wider rows the fewest warps
+    that hold them; anything else loops over the row. When the blocks
+    would leave SMs idle (the decode step's 16 rows), a row wider than
+    PACK_BYTES is spread over as many warps as take it at one vector a
+    lane, up to MAX_WARPS, so its loads and sums are split over more
+    threads."""
+    row_bytes = d * elem
+    if not aligned or row_bytes % 16:
+        threads = min(LOOP_THREADS, max(32, _pow2_at_least(d)))
+        return Layout("scalar", 0, 32, threads // 32, 1, threads)
+    nvec = row_bytes // 16
+    if row_bytes <= PACK_BYTES:
+        lanes = _pow2_at_least(nvec)
+        return Layout("tile", 1, lanes, 1, BLOCK // lanes, BLOCK)
+    if nvec > 32 * MAX_VEC * MAX_WARPS:
+        return Layout("loop", 0, 32, LOOP_THREADS // 32, 1, LOOP_THREADS)
+    warps = -(-nvec // (32 * MAX_VEC))
+    blocks = -(-rows // (BLOCK // 32)) if warps == 1 else rows
+    if blocks < sms:                # SMs left idle: one vector a lane
+        warps = max(warps, min(MAX_WARPS, -(-nvec // 32)))
+    if warps == 1:
+        return Layout("tile", -(-nvec // 32), 32, 1, BLOCK // 32, BLOCK)
+    return Layout("tile", -(-nvec // (32 * warps)), 32, warps, 1,
+                  32 * warps)
 
 
 def build() -> Path:
@@ -43,8 +104,8 @@ def _load():
             fn = lib.rmsnorm_forward
             fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
                            ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-                           ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                           ctypes.c_int, ctypes.c_void_p]
+                           ctypes.c_float] + [ctypes.c_int] * 8 + [
+                               ctypes.c_void_p]
             fn.restype = ctypes.c_int
             _lib = lib
         return _lib
@@ -73,15 +134,17 @@ def rms_norm_cuda(x: torch.Tensor, scale: torch.Tensor,
     rows = x.numel() // d if d else 0
     if rows == 0 or d == 0:
         return out
-    vec = int(d * x.element_size() % 16 == 0
-              and all(t.data_ptr() % 16 == 0 for t in (x, scale, out)))
+    lay = plan(d, x.element_size(),
+               all(t.data_ptr() % 16 == 0 for t in (x, scale, out)), rows,
+               _build.sm_count(x.device))
     lib = _load()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.rmsnorm_forward(x.data_ptr(), scale.data_ptr(),
                                  out.data_ptr(), rows, d, float(eps),
-                                 DTYPES[x.dtype], DTYPES[scale.dtype], vec,
-                                 stream)
+                                 DTYPES[x.dtype], DTYPES[scale.dtype],
+                                 lay.code, lay.vec, lay.lanes, lay.warps,
+                                 lay.rpb, lay.threads, stream)
     if rc != 0:
         raise RuntimeError(f"rmsnorm_forward launch failed: CUDA error {rc}")
     with _lock:

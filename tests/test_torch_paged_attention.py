@@ -8,11 +8,13 @@ are held to the plain version on the card (`-m cuda`; skipped without
 one), at those sweeps and at Qwen3-1.7B's decode shape.
 
 The JAX package is imported inside the parity tests only, so the CUDA
-tests run on a machine that has no JAX."""
+tests run on a machine that has no JAX. The host-side split and wave
+rule and the head groups are tested on the CPU."""
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import _build
 from repro_torch.kernels.paged_attention import kernel as tkernel
 from repro_torch.kernels.paged_attention import ops as tops
 from repro_torch.kernels.paged_attention.ref import paged_decode_attention_ref
@@ -119,12 +121,46 @@ def test_dispatch_refuses_what_it_cannot_run():
 
 
 def test_split_pages_fills_the_card():
-    # Qwen3-1.7B decode: 16 sequences x 8 kv heads, 34 pages of 64
-    splits, pps = tkernel.split_pages(16, 8, 2, 34, 132)
-    assert splits * 16 * 8 >= 4 * 132 and (splits - 1) * pps < 34 <= \
-        splits * pps
-    assert tkernel.split_pages(1, 1, 1, 3, 132) == (3, 1)
-    assert tkernel.split_pages(64, 8, 8, 10, 132) == (1, 10)
+    # Qwen3-1.7B decode: 16 sequences x 8 kv heads, 34 pages of 64, at
+    # the two occupancies the kernel can reach at hd 128 (bf16: 2 blocks
+    # per SM; f32: 1)
+    for occ in (1, 2, 3):
+        splits, pps = tkernel.split_pages(16, 8, 2, 34, 132, occ)
+        assert 16 * 8 * splits <= occ * 132           # one wave
+        assert 16 * 8 * (splits + 1) > occ * 132      # the fullest one
+        assert (splits - 1) * pps < 34 <= splits * pps
+    assert tkernel.split_pages(16, 8, 2, 34, 132, 2) == (2, 17)
+    assert tkernel.split_pages(1, 1, 1, 3, 132, 2) == (3, 1)
+    assert tkernel.split_pages(64, 8, 8, 10, 132, 2) == (1, 10)
+
+
+WAVES = [
+    # (B, K, G, P, sms, blocks per SM) -> (splits, pages per split)
+    ((16, 8, 2, 34, 132, 2), (2, 17)),
+    ((16, 8, 2, 34, 132, 1), (1, 34)),     # pairs alone fill the wave
+    ((4, 2, 8, 40, 132, 2), (20, 2)),      # 33 runs would leave empties
+    ((1, 1, 1, 3, 132, 4), (3, 1)),        # never more splits than pages
+    ((2, 2, 12, 9, 132, 1), (9, 1)),       # G 12: two head groups
+    ((200, 8, 2, 34, 132, 2), (1, 34)),    # more pairs than a wave
+    ((3, 5, 3, 7, 100, 0), (4, 2)),        # occupancy 0 counts as 1
+]
+
+
+@pytest.mark.parametrize("args,want", WAVES,
+                         ids=["x".join(map(str, a)) for a, _ in WAVES])
+def test_split_pages_wave_rule(args, want):
+    B, K, G, P, sms, occ = args
+    splits, pps = tkernel.split_pages(*args)
+    assert (splits, pps) == want
+    blocks = B * K * -(-G // tkernel.head_group(G)) * splits
+    assert splits == 1 or blocks <= sms * max(1, occ)
+    assert (splits - 1) * pps < P <= splits * pps     # no empty split
+
+
+@pytest.mark.parametrize("G,want", [(1, 1), (2, 2), (3, 4), (4, 4),
+                                    (5, 8), (8, 8), (12, 8), (16, 8)])
+def test_head_group_is_the_templated_width(G, want):
+    assert tkernel.head_group(G) == want
 
 
 def test_import_builds_nothing():
@@ -137,6 +173,10 @@ CARD_CASES = SWEEP + [
     (16, 34, 64, 8, 2, 128),       # Qwen3-1.7B decode at 16 slots
     (2, 7, 16, 2, 4, 64), (2, 5, 8, 1, 5, 32), (1, 9, 32, 2, 8, 128),
     (4, 3, 64, 16, 1, 64),
+    # the new designs' cases: G = 1 and 8 at hd 128, page sizes 16 and
+    # 128, G = 12 (two head groups), hd 64 and 8
+    (3, 6, 64, 4, 1, 128), (2, 12, 16, 2, 8, 128), (2, 5, 128, 2, 2, 128),
+    (2, 4, 16, 1, 12, 64), (2, 3, 128, 2, 2, 64), (2, 4, 8, 2, 2, 8),
 ]
 
 
@@ -146,7 +186,14 @@ def test_kernel_matches_plain_on_card(cuda_device, dtype):
     before = tkernel.launches
     calls = 0
     for i, (B, P, ps, K, G, hd) in enumerate(CARD_CASES):
-        for lens in (None, [1] * B, [P * ps] * B):
+        occ = tkernel._blocks_per_sm(cuda_device, hd, G,
+                                     tkernel.DTYPES[dtype], P)
+        splits, pps = tkernel.split_pages(B, K, G, P,
+                                          _build.sm_count(cuda_device), occ)
+        page_end = max(1, P // 2) * ps           # ends on a page boundary
+        split_end = min(P, pps) * ps             # ends where a split ends
+        for lens in (None, [1] * B, [P * ps] * B, [page_end] * B,
+                     [split_end] * B, [split_end + 1] * B):
             args = _torch(_case(i, B, P, ps, K, G, hd, lens), dtype,
                           cuda_device)
             got = tops.paged_decode_attention(*args)

@@ -97,11 +97,89 @@ def test_import_builds_nothing():
     assert tkernel._lib is None or torch.cuda.is_available()
 
 
+# ---- the layout planner (host side, no card needed) --------------------
+
+L = tkernel.Layout
+PLANS = [
+    # (d, bytes per element, 16-byte aligned) -> layout
+    ((64, 2, True), L("tile", 1, 8, 1, 16, 128)),      # 4 rows per warp
+    ((128, 2, True), L("tile", 1, 16, 1, 8, 128)),     # q_norm / k_norm
+    ((64, 4, True), L("tile", 1, 16, 1, 8, 128)),
+    ((128, 4, True), L("tile", 1, 32, 1, 4, 128)),     # 512 B: one warp
+    ((100, 4, True), L("tile", 1, 32, 1, 4, 128)),     # 25 of 32 lanes
+    ((896, 2, True), L("tile", 4, 32, 1, 4, 128)),     # masked tail
+    ((1024, 2, True), L("tile", 4, 32, 1, 4, 128)),    # train ln
+    ((2048, 2, True), L("tile", 8, 32, 1, 4, 128)),    # serving ln
+    ((2048, 4, True), L("tile", 8, 32, 2, 1, 64)),
+    ((5120, 2, True), L("tile", 7, 32, 3, 1, 96)),     # 640 of 672 slots
+    ((8192, 2, True), L("tile", 8, 32, 4, 1, 128)),
+    ((8192, 4, True), L("tile", 8, 32, 8, 1, 256)),
+    ((16384, 2, True), L("tile", 8, 32, 8, 1, 256)),   # the widest tile
+    ((16384, 4, True), L("loop", 0, 32, 8, 1, 256)),   # beyond the tile
+    ((20000, 2, True), L("loop", 0, 32, 8, 1, 256)),
+    ((100, 2, True), L("scalar", 0, 32, 4, 1, 128)),   # 200 B rows
+    ((12, 2, True), L("scalar", 0, 32, 1, 1, 32)),
+    ((64, 2, False), L("scalar", 0, 32, 2, 1, 64)),    # unaligned view
+    ((4096, 2, False), L("scalar", 0, 32, 8, 1, 256)),
+    # (d, bytes, aligned, rows, SMs): rows too few to give each of 132
+    # SMs a block spread over more warps, at one vector a lane if they can
+    ((2048, 2, True, 16, 132), L("tile", 1, 32, 8, 1, 256)),    # decode
+    ((2048, 2, True, 32768, 132), L("tile", 8, 32, 1, 4, 128)),  # prefill
+    ((1024, 2, True, 4096, 132), L("tile", 4, 32, 1, 4, 128)),   # train
+    ((1024, 2, True, 300, 132), L("tile", 1, 32, 4, 1, 128)),
+    ((2048, 4, True, 16, 132), L("tile", 2, 32, 8, 1, 256)),
+    ((8192, 2, True, 16, 132), L("tile", 4, 32, 8, 1, 256)),
+    ((5120, 2, True, 200, 132), L("tile", 7, 32, 3, 1, 96)),
+    ((128, 2, True, 16, 132), L("tile", 1, 16, 1, 8, 128)),     # packed
+    ((100, 2, True, 1, 132), L("scalar", 0, 32, 4, 1, 128)),
+]
+
+
+@pytest.mark.parametrize("args,want", PLANS,
+                         ids=["d{}x{}{}{}".format(
+                             a[0], a[1], "" if a[2] else "u",
+                             f"r{a[3]}" if len(a) > 3 else "")
+                             for a, _ in PLANS])
+def test_plan_picks_the_layout_by_width(args, want):
+    assert tkernel.plan(*args) == want
+
+
+@pytest.mark.parametrize("elem", [2, 4])
+def test_plan_tiles_cover_each_row_once(elem):
+    """Every 16-byte vector of a row lands in exactly one (thread, slot)
+    of its layout (slot k of thread t holds vector t + k * threads per
+    row, as the kernel indexes it), no slot column is wholly empty, and
+    each block is whole rows of whole warps within the kernel's
+    limits."""
+    widths = list(range(16 // elem, 20000, 16 // elem))[::7] + [896, 5120]
+    for d, rows in [(d, r) for d in widths for r in (1, 16, 100000)]:
+        lay = tkernel.plan(d, elem, True, rows, 132)
+        if lay.kind != "tile":
+            assert d * elem > 32 * 16 * tkernel.MAX_VEC * tkernel.MAX_WARPS
+            continue
+        nvec = d * elem // 16
+        tpr = lay.lanes * lay.warps
+        assert lay.threads == lay.rpb * tpr <= 256
+        assert lay.threads % 32 == 0 and 1 <= lay.vec <= tkernel.MAX_VEC
+        assert lay.lanes == 32 or (lay.warps == 1 and 32 % lay.lanes == 0)
+        assert lay.warps == 1 or lay.rpb == 1
+        slots = np.arange(tpr)[:, None] + np.arange(lay.vec)[None] * tpr
+        used = np.sort(slots[slots < nvec])
+        np.testing.assert_array_equal(used, np.arange(nvec))
+        assert (lay.vec - 1) * tpr < nvec          # last slot column used
+
+
 # ---- on the card -----------------------------------------------------------
 
 CARD_SHAPES = SHAPES + [(16, 1, 2048), (16, 1, 16, 128), (16, 1, 8, 128),
                         (2, 2048, 2048), (2, 2048, 16, 128), (3, 5, 100),
-                        (7, 1000)]
+                        (7, 1000),
+                        # every layout of `plan`: d_model 896 to 8192, a
+                        # row beyond the register tile, rows of 24 bytes
+                        # (scalar in bf16), and more row groups than the
+                        # persistent grid holds
+                        (5, 896), (4096, 1024), (3, 5120), (2, 8192),
+                        (3, 20000), (4, 7, 12), (3, 64), (33000, 128)]
 
 
 @pytest.mark.cuda
