@@ -9,13 +9,16 @@ build/repro_torch/) and drives its three paths through the user's entry
 points:
 
 - the store (phases 1-5): the GF(256) kernel against its plain PyTorch
-  version, then the single-node store at deployment size — RS(10+2),
+  version (random, Cauchy and the store's real decode matrices, column
+  offsets 0-15), then the single-node store at deployment size — RS(10+2),
   1536 MB functions, 200 MB fragments, spill journal on: PUT of >= 2 GB
   of seeded payloads made on the device (1 MB, 10 MB and 100 MB objects
   and one 400 MB two-fragment object; a few as host bytes), GET of
   everything back, a degraded GET through parity after a slab is
   reclaimed, and a daemon kill + restart whose journal replay
-  re-encodes through the kernel;
+  re-encodes through the kernel; then the kernel timed on the store's
+  operands (phase 5: encode and the real decode matrices at a 100 MB
+  object's chunk, a dense matrix on two layouts, the small products);
 - serving (phases 6-8): the RMSNorm and paged decode-attention kernels
   against their plain versions; Qwen3-1.7B at its published widths in
   bf16 (weights from a seed) served by `ServeEngine` over the SMS-paged
@@ -27,7 +30,7 @@ points:
   tokens as a run that never evicted;
 - the GF(256) A/B entry point (phase 9): `gf256_matmul(...,
   backend="ladder")`, the xtime-ladder kernel, bit-identical to its plain
-  version and to the bit-sliced kernel over the reference's sweep, a
+  version and to the codec's kernel over the reference's sweep, a
   strided view and the store's encode and decode shapes, both kernels
   timed at those shapes;
 - training (phase 10): the RMSNorm kernel's gradients against the plain
@@ -42,10 +45,10 @@ points:
 Every phase asserts; any failure exits non-zero. Prints timing lines,
 one `kernels` JSON line and, last, `{"ok": true, "device": {...}}`.
 
-With `--baseline DIR` (a checkout of the commit before the RMSNorm and
-paged-attention redesign), it also builds those two kernels' earlier
-designs and prints their times beside the current ones, in turns on the
-same card.
+With `--baseline DIR` (a checkout of the commit before the GF(256)
+kernel's redesign, e.g. `git archive <commit> | tar -x -C build/parent`),
+it also builds that kernel's earlier design and prints its time on every
+phase-5 operand beside the current one's, in turns on the same card.
 
 Exits non-zero with no result where CUDA is unavailable or the package
 is not beside this script.
@@ -98,12 +101,9 @@ def lat(seconds) -> str:
             f"over {len(ms)}")
 
 
-def gf_ops(m: int, k: int, L: int) -> int:
-    """32-bit integer ops of the bit-sliced (m,k) x (k,L) product: per
-    4-byte word and input row, 8 byte masks `((x >> b) & 0x01010101) *
-    0xFF` (23 ops: bit 0 needs no shift) and one fused and-xor (LOP3) per
-    output row and bit (8m ops)."""
-    return k * (23 + 8 * m) * (-(-L // 4))
+def ops_ms(ops: int) -> float:
+    """Time in ms of `ops` 32-bit integer operations at the ALU peak."""
+    return ops / INT32_OPS_PER_S * 1e3
 
 
 def bound(nbytes: int, ops: int = 0, bytes_per_s: float = HBM_BYTES_PER_S,
@@ -140,77 +140,223 @@ def cold_ms(fn, reps: int, scrub_bytes: int = 128 * MB) -> float:
 
 
 class EarlierDesigns:
-    """The RMSNorm and paged decode-attention kernels as they were before
-    their Hopper redesign, built from a checkout of that
-    commit (`--baseline DIR`) and called through their own C entry
-    points, so that one run times the earlier and the current design on
-    one card. Nothing counts their launches; they are timed only."""
-    RMS = "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu"
-    PA = "src/repro_torch/kernels/paged_attention/csrc/paged_attention.cu"
-    DTYPES = ("float32", "bfloat16")       # the kernels' type codes 0, 1
+    """The bit-sliced GF(256) kernel as it was before its Hopper redesign
+    (the earlier `gf256_matmul.cu`: one 4-byte word per thread, bit-planes
+    in shared memory, misaligned rows read by bytes), built from a
+    checkout of that commit (`--baseline DIR`) and called through its own
+    C entry point, so that one run times the earlier and the current
+    design on one card. Nothing counts its launches; it is timed only."""
+    GF = "src/repro_torch/kernels/rs_gf256/csrc/gf256_matmul.cu"
 
     def __init__(self, root: Path):
         import ctypes as C
         from repro_torch.kernels import _build
-        rms, pa = _build.build_many([root / self.RMS, root / self.PA])
-        self._rms = C.CDLL(str(rms)).rmsnorm_forward
-        self._rms.argtypes = [C.c_void_p] * 3 + [
-            C.c_longlong, C.c_int, C.c_float, C.c_int, C.c_int, C.c_int,
-            C.c_void_p]
-        self._rms.restype = C.c_int
-        self._pa = C.CDLL(str(pa)).paged_attention_forward
-        self._pa.argtypes = [C.c_void_p] * 8 + [C.c_int] * 8 + [
-            C.c_float, C.c_int, C.c_void_p]
-        self._pa.restype = C.c_int
+        lib, = _build.build_many([root / self.GF])
+        self._gf = C.CDLL(str(lib)).gf256_matmul_bitsliced
+        self._gf.argtypes = [C.c_void_p, C.c_void_p, C.c_longlong,
+                             C.c_void_p, C.c_longlong, C.c_int, C.c_int,
+                             C.c_longlong, C.c_void_p]
+        self._gf.restype = C.c_int
+        self._planes = {}
 
-    def _code(self, t) -> int:
-        return self.DTYPES.index(str(t.dtype).split(".")[-1])
-
-    def rms_norm(self, x, w, eps):
+    def gf256_matmul(self, G, X):
+        """OUT = G o X by the earlier kernel: its operand, the (m,k,8)
+        byte-replicated bit-planes, made once per matrix."""
+        import numpy as np
         import torch
-        out = torch.empty_like(x)
-        d = x.shape[-1]
-        vec = int(d * x.element_size() % 16 == 0 and all(
-            t.data_ptr() % 16 == 0 for t in (x, w, out)))
-        rc = self._rms(x.data_ptr(), w.data_ptr(), out.data_ptr(),
-                       x.numel() // d, d, eps, self._code(x),
-                       self._code(w), vec,
-                       torch.cuda.current_stream().cuda_stream)
-        assert rc == 0, rc
-        return out
-
-    def paged(self, q, kc, vc, table, lens):
-        """Its split rule as it was: blocks of 4 query heads, splits up
-        to 4 blocks per SM."""
-        import torch
-        B, H, hd = q.shape
-        _, P, ps, K, _ = kc.shape
-        G = H // K
-        sms = torch.cuda.get_device_properties(0).multi_processor_count
-        splits = max(1, min(P, -(-4 * sms // (B * K * -(-G // 4)))))
-        pps = -(-P // splits)
-        splits = -(-P // pps)
-        part_acc = torch.empty((B, K, splits, G, hd), dtype=torch.float32,
-                               device=q.device)
-        part_ml = torch.empty((B, K, splits, G, 2), dtype=torch.float32,
-                              device=q.device)
-        out = torch.empty_like(q)
-        rc = self._pa(q.data_ptr(), kc.data_ptr(), vc.data_ptr(),
-                      table.data_ptr(), lens.data_ptr(), part_acc.data_ptr(),
-                      part_ml.data_ptr(), out.data_ptr(), B, P, ps, K, G, hd,
-                      splits, pps, 1.0 / hd ** 0.5, self._code(q),
+        from repro_torch.kernels.rs_gf256.ref import gf_coeff_planes
+        key = G.tobytes() + bytes(G.shape)
+        planes = self._planes.get(key)
+        if planes is None:
+            words = gf_coeff_planes(G).astype(np.uint32) * np.uint32(
+                0x01010101)
+            planes = torch.from_numpy(words.view(np.int32)).to(X.device)
+            self._planes[key] = planes
+        m, k = G.shape
+        L = X.shape[1]
+        out = torch.empty((m, -(-L // 16) * 16), dtype=torch.uint8,
+                          device=X.device)[:, :L]
+        rc = self._gf(planes.data_ptr(), X.data_ptr(), X.stride(0),
+                      out.data_ptr(), out.stride(0), m, k, L,
                       torch.cuda.current_stream().cuda_stream)
         assert rc == 0, rc
         return out
 
 
 def gf_bound_ms(m: int, k: int, L: int):
-    """Least time for one (m,k) x (k,L) GF(256) product on the card: each
-    input byte (X and the planes) read once, each output byte written
-    once, against `gf_ops`."""
-    nbytes = (k + m) * L + m * k * 8 * 4
-    ops = gf_ops(m, k, L)
-    return (*bound(nbytes, ops), nbytes, ops)
+    """Least time for one (m,k) x (k,L) GF(256) product on the card: the
+    k input rows and G read once, the m output rows written once, at the
+    HBM rate. No count of operations enters it: a design's own count is
+    printed beside it, not used as the bound."""
+    nbytes = (k + m) * L + m * k
+    return (*bound(nbytes), nbytes)
+
+
+def gf_loop_ops(lib: Path) -> dict:
+    """Integer-datapath instructions per thread in each GF(256) kernel's
+    loops, counted in the SASS of the library this run built
+    (`scripts/sass_ops.py` over `cuobjdump -sass`; a static count, both
+    sides of a branch in it): {kernel name: (grid-stride loop, largest
+    inner loop)}. Empty where the toolkit has no cuobjdump."""
+    import importlib.util
+    exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(exe).exists():
+        return {}
+    spec = importlib.util.spec_from_file_location(
+        "sass_ops", ROOT / "scripts" / "sass_ops.py")
+    so = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(so)
+    sass = subprocess.run([exe, "-sass", str(lib)], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+    out = {}
+    for name, insns in so.kernels(sass).items():
+        counts = [sum(so.classify(op) == "integer" for addr, op, _ in insns
+                      if start <= addr <= end)
+                  for start, end in so.loops(insns)] or [0]
+        out[name] = (counts[-1], max(counts[:-1], default=0))
+    return out
+
+
+def gf_design_ops(loop_ops: dict, G, X):
+    """The integer instructions the codec kernel's SASS issues for
+    G o X: (ops, per 16-byte chunk, which instantiation), from
+    `gf_loop_ops`; None where the SASS was not counted. The small
+    kernel runs its grid-stride loop once per chunk; the general one
+    once per chunk and group of 8 output rows, its loop over input rows
+    k times."""
+    import re
+    from repro_torch.kernels.rs_gf256 import kernel
+    m, k = G.shape
+    L = X.shape[1]
+    plan = kernel.row_plan(G)
+    if kernel.route(plan, m, k) == "small":
+        aligned = X.data_ptr() % 16 == 0 and X.stride(0) % 16 == 0
+        pat = (f"gf256_smallILi{k}ELi{len(plan.dense)}ELb"
+               f"{int(aligned)}E")
+        per = [outer for name, (outer, _) in loop_ops.items()
+               if re.search(pat, name)]
+        groups = 1
+    else:
+        pat = "gf256_general"
+        per = [outer - inner + k * inner
+               for name, (outer, inner) in loop_ops.items()
+               if re.search(pat, name)]
+        groups = -(-m // 8)
+    if not per:
+        return None
+    return -(-L // 16) * groups * per[0], per[0] * groups, pat
+
+
+def gf_operands(dev, gen, rng):
+    """Phase 5's GF(256) operands, each (label, G, X): the main path's
+    products at a 100 MB object's chunk (L = 10,485,761) on the store's
+    layout (rows of an `ec._stacked` buffer, pitch rounded up to 16
+    bytes), the real RS(10+2) decode matrices with one and two data
+    chunks lost, a dense random (10,10) G on the store's layout and on
+    the operand timed before (rows of L bytes back to back, 7 of 10 not
+    4-byte aligned), and the small products of the main path: a 1 MB
+    object's encode, a KV page's encode and the (2,4) checkpoint
+    encode."""
+    import numpy as np
+    import torch
+    from repro_torch.core import ec
+    from repro_torch.kernels.rs_gf256.ref import cauchy_parity_matrix
+
+    def store_x(k, L):
+        X = ec._stacked(k, L, dev)
+        X.copy_(torch.randint(0, 256, (k, L), dtype=torch.uint8,
+                              device=dev, generator=gen))
+        return X
+
+    k, p = 10, 2
+    codec = ec.RSCodec(ec.ECConfig(k, p), device=dev)
+    L = codec.chunk_len(100 * MB)
+    X = store_x(k, L)
+    dense = rng.integers(0, 256, (k, k), dtype=np.uint8)
+    back_to_back = torch.randint(0, 256, (k * L,), dtype=torch.uint8,
+                                 device=dev, generator=gen).view(k, L)
+    kv_page = 2 * 28 * 64 * 8 * 128 * 2     # Qwen3-1.7B, pages of 64, bf16
+    return [
+        ("encode (2,10)", cauchy_parity_matrix(k, p), X),
+        ("decode, chunk 0 lost", codec._decode_matrix(tuple(range(1, 11))),
+         X),
+        ("decode, chunks 0-1 lost",
+         codec._decode_matrix(tuple(range(2, 12))), X),
+        ("dense random (10,10), store layout", dense, X),
+        ("dense random (10,10), back-to-back rows", dense, back_to_back),
+        ("encode (2,10), 1 MB object", cauchy_parity_matrix(k, p),
+         store_x(k, codec.chunk_len(MB))),
+        ("encode (2,10), KV page", cauchy_parity_matrix(k, p),
+         store_x(k, codec.chunk_len(kv_page))),
+        ("encode (2,4), checkpoint fragment", cauchy_parity_matrix(4, p),
+         store_x(4, -(-(8 * MB + 4) // 4))),
+    ]
+
+
+def gf_timing(dev, gen, rng, card, earlier=None, loop_ops=None) -> dict:
+    """Phase 5's kernel timings: each operand of `gf_operands` through
+    the codec's kernel, beside its byte bound, a device copy moving
+    the same bytes and, with `earlier`, the design before the redesign
+    (timed in turns: earlier, current, current, earlier); the plain
+    version at the 100 MB encode and chunk-0 decode; the design's
+    integer instructions from its SASS (`gf_design_ops`) beside the
+    bound. Returns {label: timing}."""
+    import torch
+    from repro_torch.kernels.rs_gf256 import kernel
+    from repro_torch.kernels.rs_gf256.ref import gf256_matmul_ref
+    timing = {}
+    for label, G, X in gf_operands(dev, gen, rng):
+        m, k = G.shape
+        L = X.shape[1]
+        got = kernel.gf256_matmul_cuda(G, X)
+        assert torch.equal(got, gf256_matmul_ref(G, X)), label
+        del got
+
+        def cur():
+            return kernel.gf256_matmul_cuda(G, X)
+
+        b_ms, by, nbytes = gf_bound_ms(m, k, L)
+        reps = 20 if L > MB else 200
+        half = torch.empty(nbytes // 2, dtype=torch.uint8, device=dev)
+        dst = torch.empty_like(half)
+        copy_ms = event_ms(lambda: dst.copy_(half), reps=reps)
+        del half, dst
+        if earlier is not None:
+            assert torch.equal(earlier.gf256_matmul(G, X), cur()), label
+            old = [event_ms(lambda: earlier.gf256_matmul(G, X), reps=reps)]
+            ms = [event_ms(cur, reps=reps), event_ms(cur, reps=reps)]
+            old.append(event_ms(lambda: earlier.gf256_matmul(G, X),
+                                reps=reps))
+        else:
+            old, ms = None, [event_ms(cur, reps=reps)]
+        plain = None
+        if label in ("encode (2,10)", "decode, chunk 0 lost"):
+            # the plain version copies its tables host-to-device, which
+            # waits on the stream: no spin ahead of it
+            plain = event_ms(lambda: gf256_matmul_ref(G, X), reps=3,
+                             warmup=1, spin=False)
+        best = min(ms)
+        design = gf_design_ops(loop_ops or {}, G, X)
+        timing[label] = dict(m=m, k=k, L=L, ms=best, plain_ms=plain,
+                             bound_ms=b_ms, bound_by=by, bytes=nbytes,
+                             copy_ms=copy_ms, earlier_ms=old,
+                             design_ops=design and design[0])
+        side = "" if old is None else (
+            f" | earlier design {old[0] * 1e3:.2f} / {old[1] * 1e3:.2f} us "
+            f"in turns with {ms[0] * 1e3:.2f} / {ms[1] * 1e3:.2f} us")
+        ops = "SASS not counted" if design is None else (
+            f"the design issues {design[0]} integer ops ({design[1]} per "
+            f"16-byte chunk, {design[2]}), {ops_ms(design[0]) * 1e3:.2f} us "
+            f"at the int32 peak")
+        print(f"kernel gf256 {label} (m={m}, k={k}, L={L}, row stride "
+              f"{X.stride(0)}, {kernel.row_plan(G)}): "
+              f"{best * 1e3:.2f} us = {100 * b_ms / best:.1f}% of its "
+              f"bound | bound {b_ms * 1e3:.2f} us by {by} ({nbytes} bytes;"
+              f" {ops}) | device copy of the same bytes "
+              f"{copy_ms * 1e3:.2f} us"
+              + ("" if plain is None else f" | plain {plain * 1e3:.1f} us")
+              + f"{side} | {card}")
+    return timing
 
 
 # ---- serving: phases 6-8 ---------------------------------------------------
@@ -395,11 +541,10 @@ def kv_bytes(cfg, B: int, tokens: int, elem: int = 2) -> int:
         * cfg.head_dim * elem
 
 
-def serve(dev, work, card, earlier=None) -> dict:
+def serve(dev, work, card) -> dict:
     """Phases 7 and 8: Qwen3-1.7B served at full width over the SMS-paged
     KV cache, the plain-path comparisons, KV eviction through the store,
-    and the new kernels' timings (beside the earlier designs' where
-    `earlier` holds them). Returns launches and timings."""
+    and the serving kernels' timings. Returns launches and timings."""
     import dataclasses
 
     import numpy as np
@@ -653,16 +798,6 @@ def serve(dev, work, card, earlier=None) -> dict:
     timing["paged_decode_attention"] = dict(ms=ms, plain_ms=plain,
                                             bound_ms=b_ms, bound_by=by,
                                             library_ms=lib_ms)
-    side = ""
-    if earlier is not None:       # earlier, current, current, earlier
-        old = [event_ms(lambda: earlier.paged(q, kc, vc, table, lens),
-                        reps=50)]
-        again = event_ms(paged, reps=50)
-        old.append(event_ms(lambda: earlier.paged(q, kc, vc, table, lens),
-                            reps=50))
-        side = (f" | earlier design {old[0] * 1e3:.1f} / "
-                f"{old[1] * 1e3:.1f} us against {ms * 1e3:.1f} / "
-                f"{again * 1e3:.1f} us, in turns")
     occ = pa_kernel._blocks_per_sm(dev, hd, cfg.num_heads // K,
                                    pa_kernel.DTYPES[q.dtype], P)
     splits, pps = pa_kernel.split_pages(B, K, cfg.num_heads // K, P,
@@ -673,7 +808,7 @@ def serve(dev, work, card, earlier=None) -> dict:
           f"{ms * 1e3:.1f} us = {100 * b_ms / ms:.1f}% of its bound | "
           f"bound {b_ms * 1e3:.1f} us by {by} ({pa_bytes} bytes, "
           f"{pa_flops} flops) | plain {plain * 1e3:.1f} us | _gather_pages "
-          f"+ sdpa(enable_gqa) {lib_ms * 1e3:.1f} us{side} | {card}")
+          f"+ sdpa(enable_gqa) {lib_ms * 1e3:.1f} us | {card}")
 
     # RMSNorm at its three main-path shapes; the prefill's ln is the one
     # the kernels line carries
@@ -703,25 +838,9 @@ def serve(dev, work, card, earlier=None) -> dict:
               f"{ms * 1e3:.2f} us = {100 * b_ms / ms:.1f}% of its bound | "
               f"bound {b_ms * 1e3:.2f} us by {by} ({nbytes} bytes) | plain "
               f"{plain * 1e3:.2f} us | F.rms_norm {lib_ms * 1e3:.2f} us | "
-              f"device copy of x {copy_ms * 1e3:.2f} us"
-              f"{rms_earlier(earlier, x, w, cfg.rms_eps, ms)} | {card}")
+              f"device copy of x {copy_ms * 1e3:.2f} us | {card}")
     return {"launches": launches, "timing": timing,
             "gf_evict_launches": gf_evict}
-
-
-def rms_earlier(earlier, x, w, eps, ms) -> str:
-    """The earlier RMSNorm design's time beside the current one's, timed
-    in turns (earlier, current, earlier), as text; empty without
-    `earlier`."""
-    if earlier is None:
-        return ""
-    from repro_torch.kernels.rmsnorm import kernel as rms_kernel
-    old = [event_ms(lambda: earlier.rms_norm(x, w, eps), reps=50)]
-    again = event_ms(lambda: rms_kernel.rms_norm_cuda(x, w, eps), reps=50)
-    old.append(event_ms(lambda: earlier.rms_norm(x, w, eps), reps=50))
-    return (f" | earlier design {old[0] * 1e3:.2f} / "
-            f"{old[1] * 1e3:.2f} us against {ms * 1e3:.2f} / "
-            f"{again * 1e3:.2f} us, in turns")
 
 
 def decode_on(eng, cache, tok, steps):
@@ -758,7 +877,7 @@ def ladder_ops(m: int, k: int, L: int) -> int:
 
 def ladder_phase(dev, gen, rng, L_main: int, card: str) -> dict:
     """Phase 9: the ladder kernel held bit for bit to its plain version and
-    to the bit-sliced kernel, driven through the A/B entry point at the
+    to the codec's kernel, driven through the A/B entry point at the
     store's shapes (its launches counted), and both kernels timed there.
     Returns its launches, max error and timings."""
     import numpy as np
@@ -799,7 +918,7 @@ def ladder_phase(dev, gen, rng, L_main: int, card: str) -> dict:
         checks += 1
         del got, want, other
     print(f"phase 9 ladder kernel: {checks} checks bit-identical to the "
-          f"plain ladder and to the bit-sliced kernel ((m,k) in "
+          f"plain ladder and to the codec's kernel ((m,k) in "
           f"{LADDER_SWEEP} x L in {LADDER_L}; offset views at L 2125 and "
           f"65539; the store's encode (2,10) and decode (10,10) at L "
           f"{L_main}), max_abs_err {max_err}")
@@ -820,18 +939,17 @@ def ladder_phase(dev, gen, rng, L_main: int, card: str) -> dict:
         bits_ms = event_ms(lambda: kernel.gf256_matmul_cuda(G, X), reps=20)
         plain = event_ms(lambda: gf256_matmul_ladder_ref(G, X), reps=3,
                          warmup=1, spin=False)
-        nbytes = (k + m) * L_main + m * k * 4
+        b_ms, by, nbytes = gf_bound_ms(m, k, L_main)
         ops = ladder_ops(m, k, L_main)
-        b_ms, by = bound(nbytes, ops)
-        bits_b, _, _, bits_ops = gf_bound_ms(m, k, L_main)
         timing[name] = dict(ms=ms, plain_ms=plain, bound_ms=b_ms,
                             bound_by=by, bitsliced_ms=bits_ms)
         print(f"kernel gf256_matmul_ladder {name} (m={m}, k={k}, "
-              f"L={L_main}): {ms * 1e3:.1f} us | bound {b_ms * 1e3:.1f} us "
-              f"by {by} ({nbytes} bytes, {ops} int32 ops) | plain ladder "
-              f"{plain * 1e3:.1f} us | bit-sliced kernel "
-              f"{bits_ms * 1e3:.1f} us (bound {bits_b * 1e3:.1f} us, "
-              f"{bits_ops} int32 ops) | {card}")
+              f"L={L_main}, rows back to back): {ms * 1e3:.1f} us = "
+              f"{100 * b_ms / ms:.1f}% of its bound | bound "
+              f"{b_ms * 1e3:.1f} us by {by} ({nbytes} bytes; the design "
+              f"issues {ops} integer-pipe ops, {ops_ms(ops) * 1e3:.1f} us "
+              f"at the int32 peak) | plain ladder {plain * 1e3:.1f} us | "
+              f"codec's kernel {bits_ms * 1e3:.1f} us | {card}")
     del shapes
     return {"launches": launches, "max_abs_err": max_err, "timing": timing}
 
@@ -932,7 +1050,7 @@ def profile_train_step(dev, cfg, shape, median: float, card: str) -> None:
           f"top: {top} | {card}")
 
 
-def train_phase(dev, card: str, cfg, earlier=None) -> dict:
+def train_phase(dev, card: str, cfg) -> dict:
     """Phase 10: `cfg` (Qwen1.5-0.5B at full width and depth) trained on
     the card, with a checkpoint through the store and a resume after
     every other slab is reclaimed. Returns launches and timings."""
@@ -1171,18 +1289,12 @@ def train_phase(dev, card: str, cfg, earlier=None) -> dict:
     cold = [cold_ms(kern, reps=50)]
     lib_cold = cold_ms(lib, reps=50)
     copy_cold = cold_ms(lambda: dst.copy_(x), reps=50)
-    old_cold = None if earlier is None else cold_ms(
-        lambda: earlier.rms_norm(x, w, cfg.rms_eps), reps=50)
     cold.append(cold_ms(kern, reps=50))
     plain = event_ms(lambda: rms_norm_ref(x, w, cfg.rms_eps), reps=20)
     bwd = event_ms(lambda: rms_norm_backward(x, w, cfg.rms_eps, dy),
                    reps=20)
     nbytes = 2 * x.numel() * 2 + w.numel() * 2
     rb_ms, rby = bound(nbytes, 3 * x.numel(), ops_per_s=F32_FLOPS_PER_S)
-    side = ""
-    if earlier is not None:
-        side = (f"{rms_earlier(earlier, x, w, cfg.rms_eps, ms)} (hot); "
-                f"L2 flushed {old_cold * 1e3:.2f} us")
     print(f"kernel rmsnorm train ln ({rows}, {cfg.d_model}) bf16: hot "
           f"{ms * 1e3:.2f} us, L2 flushed {cold[0] * 1e3:.2f} / "
           f"{cold[1] * 1e3:.2f} us (first / last) | bound "
@@ -1191,7 +1303,7 @@ def train_phase(dev, card: str, cfg, earlier=None) -> dict:
           f"{lib_cold * 1e3:.2f} us | device copy of x hot "
           f"{copy_ms * 1e3:.2f} us, L2 flushed {copy_cold * 1e3:.2f} us | "
           f"backward (plain torch, dx and "
-          f"dscale) {bwd * 1e3:.2f} us{side} | {card}")
+          f"dscale) {bwd * 1e3:.2f} us | {card}")
     launches = {"rmsnorm_step1": rms_one, "rmsnorm_straight": rms_straight,
                 "gf256_save": gf_save, "gf256_resume": gf_restore,
                 "recoveries_resume": recoveries,
@@ -1206,9 +1318,9 @@ def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description="Drive the port on one GPU.")
     ap.add_argument("--baseline", type=Path, default=None, metavar="DIR",
-                    help="a checkout of the commit before the RMSNorm and "
-                    "paged-attention redesign: its two kernels are built "
-                    "too and timed beside the current ones")
+                    help="a checkout of the commit before the GF(256) "
+                    "kernel's redesign: its gf256_matmul.cu is built too "
+                    "and timed beside the current kernel in phase 5")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -1245,7 +1357,7 @@ def main(argv=None) -> int:
                pa_kernel.SOURCE]
     if args.baseline is not None:
         base = args.baseline.resolve()
-        sources += [base / EarlierDesigns.RMS, base / EarlierDesigns.PA]
+        sources.append(base / EarlierDesigns.GF)
     libs = _build.build_many(sources)
     print(f"build: {', '.join(str(lib.relative_to(ROOT)) for lib in libs)}"
           f" in {time.perf_counter() - t0:.3f} s (in parallel)")
@@ -1263,26 +1375,39 @@ def main(argv=None) -> int:
                              generator=gen)
 
     # ---- phase 1: kernel against its plain version on the card --------
+    from repro_torch.core import ec
     k, p = 10, 2
     L_main = -(-(100 * MB + 4) // k)           # a 100 MB object's chunk
+    codec = ec.RSCodec(ec.ECConfig(k, p), device=dev)
+    codec4 = ec.RSCodec(ec.ECConfig(4, p), device=dev)
+    mats = {"random (2,10)": rng.integers(0, 256, (p, k), dtype=np.uint8),
+            "random (10,10)": rng.integers(0, 256, (k, k), dtype=np.uint8),
+            "encode (2,10)": cauchy_parity_matrix(k, p),
+            "decode, chunk 0 lost": codec._decode_matrix(tuple(range(1, 11))),
+            "decode, chunks 0-1 lost": codec._decode_matrix(
+                tuple(range(2, 12))),
+            "RS(4+2) decode, chunk 0 lost": codec4._decode_matrix(
+                (1, 2, 3, 4)),
+            "RS(4+2) encode": cauchy_parity_matrix(4, p)}
     max_err = 0
     checks = 0
-    for m in (p, k):                           # encode and decode shapes
+    for G in mats.values():
         for L in (1, 13, 1021, 65_539, L_main):
-            G = rng.integers(0, 256, (m, k), dtype=np.uint8)
-            base = rand_u8(k * (L + 7)).view(k, L + 7)
-            for off in (0, 1, 3):              # column-slice views
+            kk = G.shape[1]
+            base = rand_u8(kk * (L + 16)).view(kk, L + 16)
+            for off in range(16):              # column-slice views
                 X = base[:, off:off + L]
                 got = gf256_matmul(G, X)
                 want = gf256_matmul_ref(G, X)
                 torch.cuda.synchronize()
                 err = int((got.int() - want.int()).abs().max())
                 max_err = max(max_err, err)
-                assert torch.equal(got, want), (m, L, off)
+                assert torch.equal(got, want), (G.shape, L, off)
                 checks += 1
+            del base, X, got, want
     print(f"phase 1 kernel vs plain: {checks} checks bit-identical "
-          f"(shapes (2,10),(10,10); L in 1,13,1021,65539,{L_main}; "
-          f"column offsets 0,1,3), max_abs_err {max_err}")
+          f"({', '.join(mats)}; L in 1,13,1021,65539,{L_main}; column "
+          f"offsets 0-15), max_abs_err {max_err}")
 
     # ---- phase 2: main path at deployment size -------------------------
     cfg = StoreConfig(enable_recovery=False,
@@ -1435,38 +1560,23 @@ def main(argv=None) -> int:
           f"back intact; kernel launches {counts['replay']}")
 
     # ---- phase 5: timing -----------------------------------------------
-    timing = {}
-    for name, m in (("encode", p), ("decode", k)):
-        G = cauchy_parity_matrix(k, p) if m == p else \
-            rng.integers(0, 256, (m, k), dtype=np.uint8)
-        X = rand_u8(k * L_main).view(k, L_main)
-        ms = event_ms(lambda: kernel.gf256_matmul_cuda(G, X), reps=20)
-        # the plain version copies its tables host-to-device, which waits
-        # on the stream: no spin ahead of it
-        plain = event_ms(lambda: gf256_matmul_ref(G, X), reps=3, warmup=1,
-                         spin=False)
-        b_ms, by, nbytes, ops = gf_bound_ms(m, k, L_main)
-        timing[name] = dict(m=m, k=k, L=L_main, ms=ms, plain_ms=plain,
-                            bound_ms=b_ms, bound_by=by, bytes=nbytes,
-                            ops=ops)
-        print(f"kernel {name} (m={m}, k={k}, L={L_main}): {ms * 1e3:.1f} us"
-              f" | bound {b_ms * 1e3:.1f} us by {by} ({nbytes} bytes, "
-              f"{ops} int32 ops) | plain {plain * 1e3:.1f} us | "
-              f"{card}")
+    loop_ops = gf_loop_ops(libs[0])
+    timing = gf_timing(dev, gen, rng, card, earlier, loop_ops)
     # end-to-end byte bounds for one 100 MB object (chunk length L_main):
     # PUT and `get` must carry the payload across the host link (the
     # journal needs host bytes before the ack; `get` returns bytes) at
     # the pinned rate measured above; PUT also encodes (kernel bound);
     # `get_array` reads k chunks and writes the object on HBM; degraded
-    # `get_array` does the same plus the decode product.
+    # `get_array` need move no more bytes (k surviving chunks in, the
+    # object out: its decode product could ride on that pass), so its
+    # bound is the same bytes and the decode's op count is only printed.
     obj = 100 * MB
     chunks = k * L_main
     get_b, _ = bound(obj, bytes_per_s=link_bps)
-    put_b = max(get_b, timing["encode"]["bound_ms"])
-    put_by = "host link" if put_b == get_b else "encode operations"
+    put_b = max(get_b, timing["encode (2,10)"]["bound_ms"])
+    put_by = "host link" if put_b == get_b else "encode bytes"
     arr_b, _ = bound(chunks + obj)
-    deg_b, deg_by = bound(chunks + obj, gf_ops(k, k, L_main))
-    deg_by = "decode operations" if deg_by == "operations" else "HBM bytes"
+    deg_b, deg_by = arr_b, "HBM bytes"
     mbs = obj / MB
 
     def vs(rate_mbs, bound_ms, how):
@@ -1492,9 +1602,13 @@ def main(argv=None) -> int:
           f"{vs(get_large_mbs, arr_b, 'HBM bytes')}; get (bytes) "
           f"{get_bytes_mbs:.1f} MB/s, {lat(get_bytes_s[k] for k in large)}"
           f", {vs(get_bytes_mbs, get_b, 'host link')} | {card}")
+    deg_med = sorted(deg_s.values())[len(deg_s) // 2] * 1e3
+    dec = timing["decode, chunk 0 lost"]
     print(f"degraded GET 100 MB objects: get_array {deg_mbs:.1f} MB/s, "
-          f"{lat(deg_s.values())}, {vs(deg_mbs, deg_b, deg_by)}"
-          f" | {card}")
+          f"{lat(deg_s.values())}, {vs(deg_mbs, deg_b, deg_by)}; its "
+          f"decode product (chunk 0 lost) {dec['ms'] * 1e3:.2f} us = "
+          f"{100 * dec['ms'] / deg_med:.1f}% of the median (design: "
+          f"{dec['design_ops']} integer ops) | {card}")
     print(f"replay: {replay_s:.3f} s for {replay_mb:.1f} MB | {card}")
     print("launches per phase: " + json.dumps(counts))
     del objects, values, frag
@@ -1502,7 +1616,7 @@ def main(argv=None) -> int:
 
     # ---- phases 6-8: serving -------------------------------------------
     checks = kernel_checks(dev)
-    serving = serve(dev, work, card, earlier)
+    serving = serve(dev, work, card)
     shutil.rmtree(work, ignore_errors=True)
     torch.cuda.empty_cache()
 
@@ -1518,9 +1632,9 @@ def main(argv=None) -> int:
             cfg15.vocab_size, cfg15.qkv_bias, cfg15.tie_embeddings,
             cfg15.dtype) == (24, 1024, 16, 16, 64, 2816, 151936, True,
                              True, "bfloat16")
-    training = train_phase(dev, card, cfg15, earlier)
+    training = train_phase(dev, card, cfg15)
 
-    enc = timing["encode"]
+    enc = timing["encode (2,10)"]
     print(json.dumps({"kernels": [{
         "name": "gf256_matmul_bitsliced",
         "route": "cuda",

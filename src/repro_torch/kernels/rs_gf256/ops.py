@@ -30,9 +30,9 @@ def gf256_matmul(G, X: torch.Tensor, *, backend: str = "auto"
     """OUT = G @ X over GF(256). G: (m,k) uint8 (numpy or tensor), X:
     (k,L) uint8 tensor.
 
-    backend: "auto" (the codec's: bit-sliced kernel on a CUDA tensor,
+    backend: "auto" (the codec's: the codec kernel on a CUDA tensor,
              plain version on a CPU one), "bitsliced" (the same; the
-             reference's "pallas"), "ladder" (the xtime-ladder kernel,
+             reference's "pallas", whose TPU kernel it replaces), "ladder" (the xtime-ladder kernel,
              or its plain version on a CPU tensor; the A/B baseline),
              "ref" (the plain version on either device). The
              reference's "interpret" has no counterpart and raises, as

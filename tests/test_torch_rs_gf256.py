@@ -96,25 +96,203 @@ def test_cauchy_rows_mds_property():
                               np.eye(k, dtype=np.uint8))
 
 
-def test_expand_planes_are_byte_replicated_bitplanes():
-    G, _ = _operands(3, 4, 1, 11)
-    planes = tkernel.expand_planes(G, "cpu")
-    assert planes.shape == (3, 4, 8) and planes.dtype == torch.int32
-    words = planes.numpy().view(np.uint32)
-    base = tref.gf_coeff_planes(G).astype(np.uint32)
-    assert np.array_equal(words, base * np.uint32(0x01010101))
-
-
 def test_planes_cache_keys_on_matrix_bytes():
     G, _ = _operands(3, 4, 1, 12)
-    first = tkernel.planes_for(G, "cpu")
-    assert tkernel.planes_for(G.copy(), "cpu") is first
-    assert tkernel.planes_for(torch.from_numpy(G), "cpu") is first
-    assert torch.equal(first, tkernel.expand_planes(G, "cpu"))
+    first = tkernel.plan_for(G, "cpu")
+    assert tkernel.plan_for(G.copy(), "cpu") is first
+    assert tkernel.plan_for(torch.from_numpy(G), "cpu") is first
+    assert torch.equal(first.general, tkernel.expand_plan(G, "cpu").general)
     H = G.copy()
     H[0, 0] ^= 1
-    assert not torch.equal(tkernel.planes_for(H, "cpu"), first)
-    assert tkernel.planes_for(G.reshape(4, 3), "cpu") is not first
+    assert not torch.equal(tkernel.plan_for(H, "cpu").general, first.general)
+    assert tkernel.plan_for(G.reshape(4, 3), "cpu") is not first
+
+
+def _codec_matrices():
+    """(label, k, G, lost) of the store's real decode matrices: RS(10+2)
+    and RS(4+2), one and two data chunks lost (the first, the last, two
+    apart), plus their encodes."""
+    from repro_torch.core.ec import ECConfig, RSCodec
+    out = []
+    for k, p in [(10, 2), (4, 2)]:
+        codec = RSCodec(ECConfig(k, p), device="cpu")
+        for lost in [(0,), (k - 1,), (0, 1), (1, k - 1)]:
+            idx = tuple(i for i in range(k + p) if i not in lost)[:k]
+            out.append((f"RS({k}+{p}) lost {lost}", k,
+                        codec._decode_matrix(idx), lost))
+        out.append((f"RS({k}+{p}) encode", k, codec._parity, None))
+    return out
+
+
+CODEC_MATRICES = _codec_matrices()
+
+
+@pytest.mark.parametrize("case", range(len(CODEC_MATRICES)))
+def test_row_plan_of_the_store_matrices(case):
+    label, k, G, lost = CODEC_MATRICES[case]
+    plan = tkernel.row_plan(G)
+    m = G.shape[0]
+    assert sorted(plan.zero + plan.dense + tuple(i for i, _ in plan.unit)) \
+        == list(range(m)), label
+    if lost is None:                      # the Cauchy rows: all dense
+        assert plan.dense == tuple(range(m)) and not plan.unit
+    else:
+        # every surviving data chunk is a copy of its survivor, the lost
+        # ones are GF products: never more dense rows than chunks lost
+        assert plan.dense == lost, label
+        survivors = [i for i in range(k + 2) if i not in lost][:k]
+        assert plan.unit == tuple((i, survivors.index(i)) for i in range(k)
+                                  if i not in lost), label
+    assert not plan.zero
+    assert tkernel.route(plan, m, k) == "small"
+
+
+def test_row_plan_identity_zero_and_coefficient_one_rows():
+    eye = np.eye(5, dtype=np.uint8)
+    assert tkernel.row_plan(eye) == tkernel.RowPlan(
+        (), tuple((i, i) for i in range(5)), ())
+    G = np.array([[0, 0, 0], [0, 1, 0], [0, 7, 0], [1, 1, 0], [0, 0, 0],
+                  [1, 0, 3]], np.uint8)
+    plan = tkernel.row_plan(G)
+    # a lone coefficient other than 1 is a product, two 1s are a sum
+    assert plan == tkernel.RowPlan((0, 4), ((1, 1),), (2, 3, 5))
+    assert str(plan) == "3 dense, 1 unit, 2 zero rows"
+    assert np.array_equal(tkernel.coeff_kinds(G[5]), [1, 0, 2])
+    assert tkernel.route(plan, 6, 3) == "general"       # k not 4 or 10
+    assert tkernel.route(tkernel.row_plan(np.full((3, 10), 9, np.uint8)),
+                         3, 10) == "general"            # 3 dense rows
+    assert tkernel.route(tkernel.row_plan(np.eye(17, 10, dtype=np.uint8)),
+                         17, 10) == "general"           # m past 16
+
+
+def _plan_ref(G, X: torch.Tensor) -> torch.Tensor:
+    """A plain executor of the row plan: zeros, copies of the unit rows'
+    inputs, `gf256_matmul_ref` on the dense rows."""
+    plan = tkernel.row_plan(G)
+    out = torch.empty((G.shape[0], X.shape[1]), dtype=torch.uint8)
+    for i in plan.zero:
+        out[i] = 0
+    for i, j in plan.unit:
+        out[i] = X[j]
+    if plan.dense:
+        out[list(plan.dense)] = tref.gf256_matmul_ref(G[list(plan.dense)], X)
+    return out
+
+
+@pytest.mark.parametrize("case", range(len(CODEC_MATRICES) + 3))
+def test_plan_executor_matches_gf_matmul_np(case):
+    rng = np.random.default_rng(40 + case)
+    if case < len(CODEC_MATRICES):
+        G = CODEC_MATRICES[case][2]
+    else:                                 # identity, zero rows, dense
+        G = [np.eye(6, dtype=np.uint8),
+             np.array([[0, 0, 0, 0], [0, 0, 1, 0], [5, 0, 1, 1]], np.uint8),
+             rng.integers(0, 256, (7, 9), dtype=np.uint8)][
+                 case - len(CODEC_MATRICES)]
+    X = rng.integers(0, 256, (G.shape[1], 203), dtype=np.uint8)
+    assert np.array_equal(_plan_ref(G, torch.from_numpy(X)).numpy(),
+                          tref.gf_matmul_np(G, X))
+
+
+def _prmt(a, b, sel):
+    """numpy `prmt.b32` (CUDA's byte permute, with the sign-replicate bit
+    of each selector nibble): result byte n is byte (nibble n & 7) of the
+    8 bytes {b, a}, or that byte's top bit replicated if nibble n & 8."""
+    a, b, sel = np.broadcast_arrays(*(np.asarray(v, np.uint64)
+                                      for v in (a, b, sel)))
+    pool = a | (b << np.uint64(32))
+    out = np.zeros(a.shape, np.uint64)
+    for n in range(4):
+        nib = (sel >> np.uint64(4 * n)) & np.uint64(15)
+        byte = (pool >> ((nib & np.uint64(7)) * np.uint64(8))) & \
+            np.uint64(255)
+        byte = np.where(nib & np.uint64(8),
+                        np.where(byte & np.uint64(128), 255, 0), byte)
+        out |= byte.astype(np.uint64) << np.uint64(8 * n)
+    return out.astype(np.uint32)
+
+
+def _table_mul_words(tables, x):
+    """The kernel's `selectors` and `mul` on uint32 words x, in numpy."""
+    x = np.asarray(x, np.uint32)
+    xs = _prmt(x, 0, 0x3120)
+    sels = []
+    for shift, mask in ((0, 0x07070707), (3, 0x07070707), (6, 0x03030303)):
+        t = (xs >> np.uint32(shift)) & np.uint32(mask)
+        sels.append(t | (t >> np.uint32(12)))
+    t = [tables[..., w] for w in range(5)]
+    return (_prmt(t[0], t[1], sels[0]) ^ _prmt(t[2], t[3], sels[1])
+            ^ _prmt(t[4], t[4], sels[2]))
+
+
+def test_split_tables_give_every_product_by_byte_permute():
+    coeffs = np.arange(256, dtype=np.uint8)[:, None]         # (256, 1)
+    tables = tkernel.split_tables(coeffs)[:, 0]              # (256, 5)
+    assert tables.shape == (256, 5) and tables.dtype == np.uint32
+    xs = np.arange(256, dtype=np.uint8)
+    for rot in range(4):                 # every x at every byte position
+        words = np.roll(xs, rot).view("<u4")                 # (64,)
+        got = _table_mul_words(tables[:, None, :], words[None, :])
+        got = np.ascontiguousarray(got).view(np.uint8).reshape(256, 256)
+        assert np.array_equal(got, tref.GF_MUL_TABLE[:, np.roll(xs, rot)])
+
+
+def test_small_plan_words_follow_the_struct_layout():
+    G = CODEC_MATRICES[2][2]                             # RS(10+2), 2 lost
+    plan = tkernel.row_plan(G)
+    w = tkernel.small_plan_words(G, plan)
+    assert w.dtype == np.uint32 and w.size == tkernel.SMALL_PLAN_WORDS
+    tab = w[:100].reshape(2, 10, 5)
+    kinds, copies, zeros, dense_row = w[100:102], w[102:112], w[112], \
+        w[113:115]
+    assert list(dense_row) == list(plan.dense) == [0, 1]
+    for d, i in enumerate(plan.dense):
+        assert np.array_equal(tab[d], tkernel.split_tables(G[i:i + 1])[0])
+        assert [(int(kinds[d]) >> (2 * j)) & 3 for j in range(10)] == \
+            list(tkernel.coeff_kinds(G[i]))
+    for i, j in plan.unit:
+        assert copies[j] >> i & 1
+    assert sum(bin(int(c)).count("1") for c in copies) == len(plan.unit)
+    assert zeros == 0
+    G4 = np.array([[0, 0, 0, 0], [0, 0, 1, 0], [3, 0, 0, 1]], np.uint8)
+    w4 = tkernel.small_plan_words(G4, tkernel.row_plan(G4))
+    assert w4[112] == 1 and w4[102 + 2] == 1 << 1 and w4[113] == 2
+    assert np.array_equal(w4[:100].reshape(2, 10, 5)[0, :4],
+                          tkernel.split_tables(G4[2:3])[0])
+    assert not w4[:100].reshape(2, 10, 5)[0, 4:].any()
+
+
+def test_general_operand_packs_tables_and_kinds():
+    G, _ = _operands(3, 7, 1, 15)
+    G[0, 0], G[1, 1] = 0, 1
+    op = tkernel.general_operand(G)
+    assert op.shape == (3, 7, 8) and op.dtype == np.uint32
+    assert np.array_equal(op[..., :5], tkernel.split_tables(G))
+    assert np.array_equal(op[..., 5], tkernel.coeff_kinds(G))
+    assert not op[..., 6:].any()
+    small = tkernel.expand_plan(np.full((3, 10), 9, np.uint8), "cpu")
+    assert small.route == "general" and small.small is None
+    assert torch.equal(small.general, torch.from_numpy(
+        tkernel.general_operand(np.full((3, 10), 9, np.uint8))
+        .view(np.int32)))
+
+
+@pytest.mark.parametrize("L,sms,want", [
+    (1, 132, (32, 1)),
+    (104_858, 132, (32, 205)),           # a 1 MB object's chunk
+    (734_004, 132, (128, 359)),          # a KV page's
+    (2_097_153, 132, (128, 1025)),       # a checkpoint fragment's
+    (10_485_761, 132, (128, 5121)),      # a 100 MB object's
+    (16 * 2 * 132 * 128 - 16, 132, (128, 264)),
+    (16 * 2 * 132 * 96, 132, (96, 264)),
+])
+def test_launch_shape_spreads_small_products(L, sms, want):
+    threads, blocks = tkernel.launch_shape(L, sms)
+    assert (threads, blocks) == want
+    chunks = -(-L // 16)
+    assert threads % 32 == 0 and threads <= tkernel.THREADS
+    assert threads * blocks >= chunks            # one chunk a thread
+    assert threads * (blocks - 1) < chunks       # and no idle block
 
 
 def test_dispatch_refuses_what_it_cannot_run():
@@ -199,11 +377,11 @@ def test_backend_dispatch_mirrors_reference_names():
 
 def test_operand_cache_keeps_planes_and_coefficients_apart():
     G, _ = _operands(2, 3, 1, 14)
-    planes, coeffs = tkernel.planes_for(G, "cpu"), tkernel.coeffs_for(G, "cpu")
+    plan, coeffs = tkernel.plan_for(G, "cpu"), tkernel.coeffs_for(G, "cpu")
     assert tkernel.coeffs_for(G.copy(), "cpu") is coeffs
     assert coeffs.dtype == torch.int32 and coeffs.shape == (2, 3)
     assert np.array_equal(coeffs.numpy(), G.astype(np.int32))
-    assert planes.shape == (2, 3, 8)
+    assert plan.route == "general" and plan.general.shape == (2, 3, 8)
 
 
 @pytest.mark.cuda
@@ -248,3 +426,51 @@ def test_ladder_kernel_matches_plain_and_bitsliced_on_card(cuda_device):
                 assert torch.equal(got, bitsliced), (m, k, L, off)
                 calls += 1
     assert tkernel.ladder_launches - before == calls
+
+
+SWEEP_L = [1, 3, 15, 16, 17, 4097, 104_858]
+
+
+def _sweep_matrices(rng):
+    """The store's matrices, identity, zero rows, coefficient-1 rows and
+    dense (m,k) up to (16,16): both kernels of the codec path."""
+    mats = [G for _, _, G, _ in CODEC_MATRICES]
+    mats += [np.eye(10, dtype=np.uint8), np.eye(4, dtype=np.uint8),
+             np.array([[0] * 10, [1] + [0] * 9, [0, 1] * 5], np.uint8)]
+    for m, k in [(16, 16), (3, 10), (2, 4), (5, 7), (1, 1), (12, 10)]:
+        G = rng.integers(0, 256, (m, k), dtype=np.uint8)
+        G[0, 0] = 1
+        mats.append(G)
+    return mats
+
+
+@pytest.mark.cuda
+def test_kernel_sweeps_plans_offsets_and_lengths_on_card(cuda_device):
+    """Every route and plan against the plain version: input column
+    offsets 0-15 (rows at every alignment), the result at output column
+    offsets 0-15 equal to the product of the offset input, and lengths
+    around the 16-byte chunk and the small main-path products."""
+    rng = np.random.default_rng(9)
+    before = tkernel.launches
+    calls = 0
+    for G in _sweep_matrices(rng):
+        m, k = G.shape
+        for L in SWEEP_L:
+            base = torch.from_numpy(
+                rng.integers(0, 256, (k, L + 16), dtype=np.uint8)
+            ).to(cuda_device)
+            for off in range(16):
+                X = base[:, off:off + L]
+                got = tops.gf256_matmul(G, X)
+                want = tref.gf256_matmul_ref(G, X)
+                torch.cuda.synchronize()
+                assert torch.equal(got, want), (G.shape, L, off)
+                assert got.data_ptr() % 16 == 0 and got.stride(0) % 16 == 0
+                calls += 1
+                if L == 4097:
+                    for o in range(16):      # the output at offset o
+                        part = tops.gf256_matmul(G, X[:, o:])
+                        torch.cuda.synchronize()
+                        assert torch.equal(part, got[:, o:]), (G.shape, o)
+                        calls += 1
+    assert tkernel.launches - before == calls
