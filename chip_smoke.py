@@ -30,9 +30,12 @@ points:
   tokens as a run that never evicted;
 - the GF(256) A/B entry point (phase 9): `gf256_matmul(...,
   backend="ladder")`, the xtime-ladder kernel, bit-identical to its plain
-  version and to the codec's kernel over the reference's sweep, a
-  strided view and the store's encode and decode shapes, both kernels
-  timed at those shapes;
+  version and to the codec's kernel over the reference's sweep, offset
+  views, rows on the codec's 16-byte pitch and the timed operands, then
+  timed on the 100 MB encode and a dense (10,10) product with rows back
+  to back, the encode on the 16-byte pitch and the reference's A/B
+  operand (RS(10+2) at L 104,858), beside its byte bound, a device copy
+  of the same bytes and the codec's kernel;
 - training (phase 10): the RMSNorm kernel's gradients against the plain
   version's; Qwen1.5-0.5B at its published widths and full depth trained
   by `train()` (8 x 1024 tokens a step in 2 microbatches, bf16 weights,
@@ -45,10 +48,10 @@ points:
 Every phase asserts; any failure exits non-zero. Prints timing lines,
 one `kernels` JSON line and, last, `{"ok": true, "device": {...}}`.
 
-With `--baseline DIR` (a checkout of the commit before the GF(256)
-kernel's redesign, e.g. `git archive <commit> | tar -x -C build/parent`),
-it also builds that kernel's earlier design and prints its time on every
-phase-5 operand beside the current one's, in turns on the same card.
+With `--baseline DIR` (a checkout of an earlier commit, e.g. `git
+archive <commit> | tar -x -C build/parent`), it also builds that
+commit's GF(256) ladder and prints its time on every phase-9 operand
+beside the current one's, in turns on the same card.
 
 Exits non-zero with no result where CUDA is unavailable or the package
 is not beside this script.
@@ -140,43 +143,40 @@ def cold_ms(fn, reps: int, scrub_bytes: int = 128 * MB) -> float:
 
 
 class EarlierDesigns:
-    """The bit-sliced GF(256) kernel as it was before its Hopper redesign
-    (the earlier `gf256_matmul.cu`: one 4-byte word per thread, bit-planes
-    in shared memory, misaligned rows read by bytes), built from a
-    checkout of that commit (`--baseline DIR`) and called through its own
-    C entry point, so that one run times the earlier and the current
-    design on one card. Nothing counts its launches; it is timed only."""
-    GF = "src/repro_torch/kernels/rs_gf256/csrc/gf256_matmul.cu"
+    """The GF(256) ladder of a baseline checkout (`--baseline DIR`): its
+    `gf256_ladder.cu`, built from that checkout and called through its
+    own C entry point (int32 coefficients, X, ldx, out, ldo, m, k, L,
+    stream; before the Hopper redesign: one payload byte per int32
+    lane, one 4-byte word per thread, misaligned rows read by bytes), so
+    that one run times the earlier and the current design on one card.
+    Nothing counts its launches; it is timed only."""
+    LADDER = "src/repro_torch/kernels/rs_gf256/csrc/gf256_ladder.cu"
 
-    def __init__(self, root: Path):
+    def __init__(self, lib: Path):
         import ctypes as C
-        from repro_torch.kernels import _build
-        lib, = _build.build_many([root / self.GF])
-        self._gf = C.CDLL(str(lib)).gf256_matmul_bitsliced
-        self._gf.argtypes = [C.c_void_p, C.c_void_p, C.c_longlong,
+        self._fn = C.CDLL(str(lib)).gf256_matmul_ladder
+        self._fn.argtypes = [C.c_void_p, C.c_void_p, C.c_longlong,
                              C.c_void_p, C.c_longlong, C.c_int, C.c_int,
                              C.c_longlong, C.c_void_p]
-        self._gf.restype = C.c_int
-        self._planes = {}
+        self._fn.restype = C.c_int
+        self._coeffs = {}
 
-    def gf256_matmul(self, G, X):
-        """OUT = G o X by the earlier kernel: its operand, the (m,k,8)
-        byte-replicated bit-planes, made once per matrix."""
+    def ladder(self, G, X):
+        """OUT = G o X by the earlier ladder, into a 16-byte-pitched
+        output; its operand, the (m,k) int32 coefficients, made once per
+        matrix."""
         import numpy as np
         import torch
-        from repro_torch.kernels.rs_gf256.ref import gf_coeff_planes
         key = G.tobytes() + bytes(G.shape)
-        planes = self._planes.get(key)
-        if planes is None:
-            words = gf_coeff_planes(G).astype(np.uint32) * np.uint32(
-                0x01010101)
-            planes = torch.from_numpy(words.view(np.int32)).to(X.device)
-            self._planes[key] = planes
+        coeffs = self._coeffs.get(key)
+        if coeffs is None:
+            coeffs = torch.from_numpy(np.asarray(G, np.int32)).to(X.device)
+            self._coeffs[key] = coeffs
         m, k = G.shape
         L = X.shape[1]
         out = torch.empty((m, -(-L // 16) * 16), dtype=torch.uint8,
                           device=X.device)[:, :L]
-        rc = self._gf(planes.data_ptr(), X.data_ptr(), X.stride(0),
+        rc = self._fn(coeffs.data_ptr(), X.data_ptr(), X.stride(0),
                       out.data_ptr(), out.stride(0), m, k, L,
                       torch.cuda.current_stream().cuda_stream)
         assert rc == 0, rc
@@ -192,12 +192,23 @@ def gf_bound_ms(m: int, k: int, L: int):
     return (*bound(nbytes), nbytes)
 
 
+def device_copy_ms(nbytes: int, reps: int, dev) -> float:
+    """Device time of a device-to-device copy that reads and writes
+    `nbytes` in all (`nbytes / 2` each way): the yardstick printed beside
+    a GF(256) product that moves as many bytes."""
+    import torch
+    src = torch.empty(nbytes // 2, dtype=torch.uint8, device=dev)
+    dst = torch.empty_like(src)
+    return event_ms(lambda: dst.copy_(src), reps=reps)
+
+
 def gf_loop_ops(lib: Path) -> dict:
     """Integer-datapath instructions per thread in each GF(256) kernel's
     loops, counted in the SASS of the library this run built
     (`scripts/sass_ops.py` over `cuobjdump -sass`; a static count, both
     sides of a branch in it): {kernel name: (grid-stride loop, largest
-    inner loop)}. Empty where the toolkit has no cuobjdump."""
+    inner loop, the IMADs of each)}. IMAD issues to the FMA pipe, the
+    rest to the integer ALU. Empty where the toolkit has no cuobjdump."""
     import importlib.util
     exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not Path(exe).exists():
@@ -210,10 +221,13 @@ def gf_loop_ops(lib: Path) -> dict:
                           text=True, timeout=120, check=True).stdout
     out = {}
     for name, insns in so.kernels(sass).items():
-        counts = [sum(so.classify(op) == "integer" for addr, op, _ in insns
-                      if start <= addr <= end)
-                  for start, end in so.loops(insns)] or [0]
-        out[name] = (counts[-1], max(counts[:-1], default=0))
+        counts = [(sum(so.classify(op) == "integer" for addr, op, _ in insns
+                       if start <= addr <= end),
+                   sum(op == "IMAD" for addr, op, _ in insns
+                       if start <= addr <= end))
+                  for start, end in so.loops(insns)] or [(0, 0)]
+        inner = max(counts[:-1], default=(0, 0))
+        out[name] = (counts[-1][0], inner[0], counts[-1][1], inner[1])
     return out
 
 
@@ -233,13 +247,13 @@ def gf_design_ops(loop_ops: dict, G, X):
         aligned = X.data_ptr() % 16 == 0 and X.stride(0) % 16 == 0
         pat = (f"gf256_smallILi{k}ELi{len(plan.dense)}ELb"
                f"{int(aligned)}E")
-        per = [outer for name, (outer, _) in loop_ops.items()
+        per = [outer for name, (outer, *_) in loop_ops.items()
                if re.search(pat, name)]
         groups = 1
     else:
         pat = "gf256_general"
         per = [outer - inner + k * inner
-               for name, (outer, inner) in loop_ops.items()
+               for name, (outer, inner, *_) in loop_ops.items()
                if re.search(pat, name)]
         groups = -(-m // 8)
     if not per:
@@ -293,14 +307,12 @@ def gf_operands(dev, gen, rng):
     ]
 
 
-def gf_timing(dev, gen, rng, card, earlier=None, loop_ops=None) -> dict:
+def gf_timing(dev, gen, rng, card, loop_ops=None) -> dict:
     """Phase 5's kernel timings: each operand of `gf_operands` through
-    the codec's kernel, beside its byte bound, a device copy moving
-    the same bytes and, with `earlier`, the design before the redesign
-    (timed in turns: earlier, current, current, earlier); the plain
-    version at the 100 MB encode and chunk-0 decode; the design's
-    integer instructions from its SASS (`gf_design_ops`) beside the
-    bound. Returns {label: timing}."""
+    the codec's kernel, beside its byte bound and a device copy moving
+    the same bytes; the plain version at the 100 MB encode and chunk-0
+    decode; the design's integer instructions from its SASS
+    (`gf_design_ops`) beside the bound. Returns {label: timing}."""
     import torch
     from repro_torch.kernels.rs_gf256 import kernel
     from repro_torch.kernels.rs_gf256.ref import gf256_matmul_ref
@@ -317,33 +329,19 @@ def gf_timing(dev, gen, rng, card, earlier=None, loop_ops=None) -> dict:
 
         b_ms, by, nbytes = gf_bound_ms(m, k, L)
         reps = 20 if L > MB else 200
-        half = torch.empty(nbytes // 2, dtype=torch.uint8, device=dev)
-        dst = torch.empty_like(half)
-        copy_ms = event_ms(lambda: dst.copy_(half), reps=reps)
-        del half, dst
-        if earlier is not None:
-            assert torch.equal(earlier.gf256_matmul(G, X), cur()), label
-            old = [event_ms(lambda: earlier.gf256_matmul(G, X), reps=reps)]
-            ms = [event_ms(cur, reps=reps), event_ms(cur, reps=reps)]
-            old.append(event_ms(lambda: earlier.gf256_matmul(G, X),
-                                reps=reps))
-        else:
-            old, ms = None, [event_ms(cur, reps=reps)]
+        copy_ms = device_copy_ms(nbytes, reps, dev)
+        best = event_ms(cur, reps=reps)
         plain = None
         if label in ("encode (2,10)", "decode, chunk 0 lost"):
             # the plain version copies its tables host-to-device, which
             # waits on the stream: no spin ahead of it
             plain = event_ms(lambda: gf256_matmul_ref(G, X), reps=3,
                              warmup=1, spin=False)
-        best = min(ms)
         design = gf_design_ops(loop_ops or {}, G, X)
         timing[label] = dict(m=m, k=k, L=L, ms=best, plain_ms=plain,
                              bound_ms=b_ms, bound_by=by, bytes=nbytes,
-                             copy_ms=copy_ms, earlier_ms=old,
+                             copy_ms=copy_ms,
                              design_ops=design and design[0])
-        side = "" if old is None else (
-            f" | earlier design {old[0] * 1e3:.2f} / {old[1] * 1e3:.2f} us "
-            f"in turns with {ms[0] * 1e3:.2f} / {ms[1] * 1e3:.2f} us")
         ops = "SASS not counted" if design is None else (
             f"the design issues {design[0]} integer ops ({design[1]} per "
             f"16-byte chunk, {design[2]}), {ops_ms(design[0]) * 1e3:.2f} us "
@@ -355,7 +353,7 @@ def gf_timing(dev, gen, rng, card, earlier=None, loop_ops=None) -> dict:
               f" {ops}) | device copy of the same bytes "
               f"{copy_ms * 1e3:.2f} us"
               + ("" if plain is None else f" | plain {plain * 1e3:.1f} us")
-              + f"{side} | {card}")
+              + f" | {card}")
     return timing
 
 
@@ -858,30 +856,44 @@ def decode_on(eng, cache, tok, steps):
 # ---- the GF(256) A/B entry point: phase 9 --------------------------------
 
 LADDER_SWEEP = [(2, 10), (4, 4), (1, 2), (6, 12), (10, 10)]
-LADDER_L = [1, 100, 1024, 2125]
-# Integer-pipe ops the ladder kernel issues per 4-byte word and input
-# row, counted in its SASS (`cuobjdump -sass` of gf256_ladder.cu's
-# library, the aligned path of the loop over input rows) for the two
-# instantiations the store's shapes run: LOP3, SHF, IADD3, VIADD and
-# ISETP. Its IMADs (moves and shifts, 68 at m = 2 and 63 at m = 10) issue
-# to the FMA pipe, and at m = 10 the take-masks run on the uniform
-# datapath (240 ops per warp); neither competes for the int32 lanes.
-LADDER_INT_OPS = {2: 222, 10: 455}
+LADDER_L = [1, 15, 16, 17, 63, 64, 65, 100, 1024, 2125]
+AB_L = 104_858                   # benchmarks/kernels.py: RS(10+2), ~1 MB
 
 
-def ladder_ops(m: int, k: int, L: int) -> int:
-    """Integer-pipe ops of the ladder's (m,k) x (k,L) product, as its
-    SASS issues them (`LADDER_INT_OPS`; m = 2 and m = 10 only)."""
-    return k * LADDER_INT_OPS[m] * (-(-L // 4))
+def ladder_ops(loop_ops: dict, m: int, k: int, L: int):
+    """The integer instructions the ladder kernel's SASS issues for an
+    (m,k) x (k,L) product, from `gf_loop_ops` of its library: its
+    grid-stride loop once per 16-byte chunk and group of up to 16 output
+    rows, its loop over input rows k times. (ops, of which IMAD, per
+    chunk and input row, of which IMAD); None where the SASS was not
+    counted."""
+    import re
+    rows = min(m, 16)
+    per = [(outer - inner + k * inner, o_imad - i_imad + k * i_imad,
+            inner, i_imad)
+           for name, (outer, inner, o_imad, i_imad) in loop_ops.items()
+           if re.search(f"gf256_ladderILi{rows}E", name)]
+    if not per:
+        return None
+    chunk, chunk_imad, inner, i_imad = per[0]
+    n = -(-L // 16) * -(-m // 16)
+    return n * chunk, n * chunk_imad, inner, i_imad
 
 
-def ladder_phase(dev, gen, rng, L_main: int, card: str) -> dict:
+def ladder_phase(dev, gen, rng, L_main: int, card: str, loop_ops=None,
+                 earlier=None) -> dict:
     """Phase 9: the ladder kernel held bit for bit to its plain version and
-    to the codec's kernel, driven through the A/B entry point at the
-    store's shapes (its launches counted), and both kernels timed there.
-    Returns its launches, max error and timings."""
+    to the codec's kernel (rows back to back, offset views, rows on the
+    codec's 16-byte pitch, lengths around a 16-byte chunk), driven through
+    the A/B entry point on the operands it is timed on (its launches
+    counted), then timed there beside its byte bound, a device copy of
+    the same bytes, the codec's kernel, the plain ladder, its SASS count
+    (`ladder_ops`) and, with `earlier`, the design before its redesign
+    (in turns: earlier, current, current, earlier). Returns its
+    launches, max error and timings."""
     import numpy as np
     import torch
+    from repro_torch.core import ec
     from repro_torch.kernels.rs_gf256 import kernel
     from repro_torch.kernels.rs_gf256.ops import gf256_matmul
     from repro_torch.kernels.rs_gf256.ref import (cauchy_parity_matrix,
@@ -891,13 +903,23 @@ def ladder_phase(dev, gen, rng, L_main: int, card: str) -> dict:
         return torch.randint(0, 256, (k, L + pad), dtype=torch.uint8,
                              device=dev, generator=gen)
 
+    def pitched_x(k, L):
+        X = ec._stacked(k, L, dev)
+        X.copy_(rand_x(k, L))
+        return X
+
     k, p = 10, 2
+    # (m, k, L, column offset into rows of L + offset bytes back to
+    # back, or None for rows on the codec's 16-byte pitch)
     cases = [(m, kk, L, 0) for m, kk in LADDER_SWEEP for L in LADDER_L]
-    cases += [(10, 10, 2125, 1), (10, 10, 65_539, 3), (2, 10, 65_539, 1)]
+    cases += [(10, 10, 2125, 1), (10, 10, 65_539, 3), (2, 10, 65_539, 1),
+              (2, 10, AB_L, 0)]
+    cases += [(m, kk, L, None) for m, kk in ((2, 10), (10, 10))
+              for L in LADDER_L + [65_539]]
     checks = max_err = 0
     for m, kk, L, off in cases:
         G = rng.integers(0, 256, (m, kk), dtype=np.uint8)
-        X = rand_x(kk, L, off)[:, off:]           # offset view: unaligned
+        X = pitched_x(kk, L) if off is None else rand_x(kk, L, off)[:, off:]
         got = gf256_matmul(G, X, backend="ladder")
         want = gf256_matmul_ladder_ref(G, X)
         other = gf256_matmul(G, X, backend="bitsliced")
@@ -906,9 +928,14 @@ def ladder_phase(dev, gen, rng, L_main: int, card: str) -> dict:
         assert torch.equal(got, want), (m, kk, L, off)
         assert torch.equal(got, other), (m, kk, L, off)
         checks += 1
-    shapes = {"encode": (cauchy_parity_matrix(k, p), rand_x(k, L_main)),
-              "decode": (rng.integers(0, 256, (k, k), dtype=np.uint8),
-                         rand_x(k, L_main))}
+    cauchy = cauchy_parity_matrix(k, p)
+    shapes = {
+        "encode": (cauchy, rand_x(k, L_main)),
+        "dense (10,10)": (rng.integers(0, 256, (k, k), dtype=np.uint8),
+                          rand_x(k, L_main)),
+        "encode, 16-byte pitch": (cauchy, pitched_x(k, L_main)),
+        "A/B operand": (cauchy, rand_x(k, AB_L)),
+    }
     for name, (G, X) in shapes.items():
         got = gf256_matmul(G, X, backend="ladder")
         want = gf256_matmul_ladder_ref(G, X)
@@ -919,11 +946,12 @@ def ladder_phase(dev, gen, rng, L_main: int, card: str) -> dict:
         del got, want, other
     print(f"phase 9 ladder kernel: {checks} checks bit-identical to the "
           f"plain ladder and to the codec's kernel ((m,k) in "
-          f"{LADDER_SWEEP} x L in {LADDER_L}; offset views at L 2125 and "
-          f"65539; the store's encode (2,10) and decode (10,10) at L "
-          f"{L_main}), max_abs_err {max_err}")
+          f"{LADDER_SWEEP} x L in {LADDER_L}, rows back to back; offset "
+          f"views at L 2125 and 65539; (2,10) and (10,10) on the 16-byte "
+          f"pitch at each L and 65539; the timed operands below), "
+          f"max_abs_err {max_err}")
 
-    # the A/B entry point at the store's shapes, as a benchmark calls it
+    # the A/B entry point on the timed operands, as a benchmark calls it
     torch.cuda.synchronize()
     kernel.ladder_launches = 0
     for G, X in shapes.values():
@@ -935,21 +963,47 @@ def ladder_phase(dev, gen, rng, L_main: int, card: str) -> dict:
     timing = {}
     for name, (G, X) in shapes.items():
         m = G.shape[0]
-        ms = event_ms(lambda: kernel.gf256_matmul_ladder_cuda(G, X), reps=20)
-        bits_ms = event_ms(lambda: kernel.gf256_matmul_cuda(G, X), reps=20)
+        L = X.shape[1]
+
+        def cur():
+            return kernel.gf256_matmul_ladder_cuda(G, X)
+
+        reps = 20 if L > MB else 200
+        b_ms, by, nbytes = gf_bound_ms(m, k, L)
+        copy_ms = device_copy_ms(nbytes, reps, dev)
+        if earlier is not None:
+            assert torch.equal(earlier.ladder(G, X), cur()), name
+            old = [event_ms(lambda: earlier.ladder(G, X), reps=reps)]
+            ms = [event_ms(cur, reps=reps), event_ms(cur, reps=reps)]
+            old.append(event_ms(lambda: earlier.ladder(G, X), reps=reps))
+        else:
+            old, ms = None, [event_ms(cur, reps=reps)]
+        best = min(ms)
+        bits_ms = event_ms(lambda: kernel.gf256_matmul_cuda(G, X),
+                           reps=reps)
         plain = event_ms(lambda: gf256_matmul_ladder_ref(G, X), reps=3,
                          warmup=1, spin=False)
-        b_ms, by, nbytes = gf_bound_ms(m, k, L_main)
-        ops = ladder_ops(m, k, L_main)
-        timing[name] = dict(ms=ms, plain_ms=plain, bound_ms=b_ms,
-                            bound_by=by, bitsliced_ms=bits_ms)
-        print(f"kernel gf256_matmul_ladder {name} (m={m}, k={k}, "
-              f"L={L_main}, rows back to back): {ms * 1e3:.1f} us = "
-              f"{100 * b_ms / ms:.1f}% of its bound | bound "
-              f"{b_ms * 1e3:.1f} us by {by} ({nbytes} bytes; the design "
-              f"issues {ops} integer-pipe ops, {ops_ms(ops) * 1e3:.1f} us "
-              f"at the int32 peak) | plain ladder {plain * 1e3:.1f} us | "
-              f"codec's kernel {bits_ms * 1e3:.1f} us | {card}")
+        design = ladder_ops(loop_ops or {}, m, k, L)
+        timing[name] = dict(m=m, k=k, L=L, ms=best, plain_ms=plain,
+                            bound_ms=b_ms, bound_by=by, bytes=nbytes,
+                            copy_ms=copy_ms, bitsliced_ms=bits_ms,
+                            earlier_ms=old, design_ops=design and design[0])
+        ops = "SASS not counted" if design is None else (
+            f"the design issues {design[0]} integer ops, {design[1]} of "
+            f"them IMAD on the FMA pipe ({design[2]} per 16-byte chunk and "
+            f"input row, {design[3]} IMAD), "
+            f"{ops_ms(max(design[0] - design[1], design[1])) * 1e3:.2f} us "
+            f"at the int32 peak of the busier pipe")
+        side = "" if old is None else (
+            f" | earlier design {old[0] * 1e3:.2f} / {old[1] * 1e3:.2f} us "
+            f"in turns with {ms[0] * 1e3:.2f} / {ms[1] * 1e3:.2f} us")
+        print(f"kernel gf256_matmul_ladder {name} (m={m}, k={k}, L={L}, "
+              f"row stride {X.stride(0)}): {best * 1e3:.2f} us = "
+              f"{100 * b_ms / best:.1f}% of its bound | bound "
+              f"{b_ms * 1e3:.2f} us by {by} ({nbytes} bytes; {ops}) | "
+              f"device copy of the same bytes {copy_ms * 1e3:.2f} us | "
+              f"codec's kernel {bits_ms * 1e3:.2f} us | plain ladder "
+              f"{plain * 1e3:.1f} us{side} | {card}")
     del shapes
     return {"launches": launches, "max_abs_err": max_err, "timing": timing}
 
@@ -1318,9 +1372,9 @@ def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description="Drive the port on one GPU.")
     ap.add_argument("--baseline", type=Path, default=None, metavar="DIR",
-                    help="a checkout of the commit before the GF(256) "
-                    "kernel's redesign: its gf256_matmul.cu is built too "
-                    "and timed beside the current kernel in phase 5")
+                    help="a checkout of an earlier commit: its GF(256) "
+                    "ladder is built too and timed beside the current "
+                    "one in phase 9")
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -1356,12 +1410,12 @@ def main(argv=None) -> int:
     sources = [kernel.SOURCE, kernel.LADDER_SOURCE, rms_kernel.SOURCE,
                pa_kernel.SOURCE]
     if args.baseline is not None:
-        base = args.baseline.resolve()
-        sources.append(base / EarlierDesigns.GF)
+        sources.append(args.baseline.resolve() / EarlierDesigns.LADDER)
     libs = _build.build_many(sources)
     print(f"build: {', '.join(str(lib.relative_to(ROOT)) for lib in libs)}"
           f" in {time.perf_counter() - t0:.3f} s (in parallel)")
-    earlier = EarlierDesigns(base) if args.baseline is not None else None
+    earlier = EarlierDesigns(libs[4]) if args.baseline is not None \
+        else None
 
     work = ROOT / "build" / "repro_torch" / "smoke"
     shutil.rmtree(work, ignore_errors=True)
@@ -1561,7 +1615,7 @@ def main(argv=None) -> int:
 
     # ---- phase 5: timing -----------------------------------------------
     loop_ops = gf_loop_ops(libs[0])
-    timing = gf_timing(dev, gen, rng, card, earlier, loop_ops)
+    timing = gf_timing(dev, gen, rng, card, loop_ops)
     # end-to-end byte bounds for one 100 MB object (chunk length L_main):
     # PUT and `get` must carry the payload across the host link (the
     # journal needs host bytes before the ack; `get` returns bytes) at
@@ -1621,7 +1675,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     # ---- phase 9: the GF(256) A/B entry point --------------------------
-    ladder = ladder_phase(dev, gen, rng, L_main, card)
+    ladder = ladder_phase(dev, gen, rng, L_main, card,
+                          gf_loop_ops(libs[1]), earlier)
     torch.cuda.empty_cache()
 
     # ---- phase 10: training with checkpoints through the store ---------

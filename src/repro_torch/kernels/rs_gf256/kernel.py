@@ -9,7 +9,11 @@ Two kernels, each described at the top of its source:
   looked up by byte permutes (`split_tables`), one 16-byte column chunk
   of every input row per thread (`launch_shape`);
 - `gf256_matmul_ladder_cuda` (`csrc/gf256_ladder.cu`), the xtime-ladder
-  A/B baseline; replaces `_rs_ladder_kernel`.
+  A/B baseline; replaces `_rs_ladder_kernel`: every product formed at
+  run time by xtimes of four packed bytes per 32-bit word, the running
+  multiples shared by the output rows, each take a warp-uniform mask or
+  0/1 product, one 16-byte column chunk of every input row per thread
+  (`launch_shape`).
 
 Each source is compiled with `nvcc` for `sm_90a` into a shared library
 with a plain C entry point (built at first use by `kernels/_build.py`
@@ -66,8 +70,8 @@ _ARGTYPES = {
     # blocks, stream)
     "gf256_matmul_planned": [_P, _P, _P, _LL, _P, _LL, _I, _I, _I, _LL, _I,
                              _I, _P],
-    # (coefficients, X, ldx, out, ldo, m, k, L, stream)
-    "gf256_matmul_ladder": [_P, _P, _LL, _P, _LL, _I, _I, _LL, _P],
+    # (coefficients, X, ldx, out, ldo, m, k, L, threads, blocks, stream)
+    "gf256_matmul_ladder": [_P, _P, _LL, _P, _LL, _I, _I, _LL, _I, _I, _P],
 }
 
 
@@ -291,18 +295,20 @@ def gf256_matmul_cuda(G, X: torch.Tensor) -> torch.Tensor:
 
 def gf256_matmul_ladder_cuda(G, X: torch.Tensor) -> torch.Tensor:
     """Launch the xtime-ladder kernel on the same operands as
-    `gf256_matmul_cuda`, with the same result."""
+    `gf256_matmul_cuda`, with the same result and output layout."""
     global ladder_launches
     m, k, L = _check("gf256_matmul_ladder", G, X)
     coeffs = coeffs_for(G, X.device)
     out = _output(m, L, X.device)
     if L == 0:
         return out
+    threads, blocks = launch_shape(L, _build.sm_count(X.device))
     fn = _entry(LADDER_SOURCE, "gf256_matmul_ladder")
     with torch.cuda.device(X.device):
         stream = torch.cuda.current_stream(X.device).cuda_stream
         rc = fn(coeffs.data_ptr(), X.data_ptr(), X.stride(0),
-                out.data_ptr(), out.stride(0), m, k, L, stream)
+                out.data_ptr(), out.stride(0), m, k, L, threads, blocks,
+                stream)
     _raise_on("gf256_matmul_ladder", rc)
     with _lock:
         ladder_launches += 1

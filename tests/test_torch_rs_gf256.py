@@ -2,8 +2,10 @@
 the JAX package's: tables, Cauchy and inverse matrices, and the plain
 PyTorch products — the codec's and the xtime ladder's — bit-identical
 (tolerance 0) to `gf_matmul_np` and to the Pallas kernels in interpret
-mode; the `backend=` dispatch of `gf256_matmul`. The CUDA kernels are
-held to their plain versions and to each other on the card (`-m cuda`;
+mode; the `backend=` dispatch of `gf256_matmul`; numpy emulations of
+the kernels' word arithmetic (the codec's byte permutes, the ladder's
+packed xtimes, the funnel-shift realignment). The CUDA kernels are held
+to their plain versions and to each other on the card (`-m cuda`;
 skipped without one).
 
 The JAX package is imported inside the parity tests only, so the CUDA
@@ -405,18 +407,99 @@ def test_kernel_matches_plain_on_card(cuda_device):
     assert tkernel.launches - before == calls
 
 
+def _xtime4(a):
+    """The ladder kernel's `xtime4` on uint32 words, in numpy: the
+    sign-replicating byte permute marks each byte whose bit 7 is set, the
+    bytes shift left within their byte, 0x1D goes in where bit 7 was."""
+    a = np.asarray(a, np.uint32)
+    msb = _prmt(a, 0, 0xBA98)
+    return ((a & np.uint32(0x7F7F7F7F)) << np.uint32(1)) ^ \
+        (msb & np.uint32(0x1D1D1D1D))
+
+
+def _ladder_words(coeffs, x, mask_bits):
+    """The ladder kernel's work for one coefficient and input row on
+    uint32 words x: the bits in pairs, x * 2^(2p + 1) from x * 2^(2p) by
+    `_xtime4`, both taken in one acc ^ t1 ^ t2, each take a mask
+    x & -bit for bits below `mask_bits`, else a product x * bit."""
+    c = np.asarray(coeffs, np.uint32)
+    a = np.asarray(x, np.uint32)
+    acc = np.zeros(np.broadcast_shapes(c.shape, a.shape), np.uint32)
+    for p in range(4):
+        a1 = _xtime4(a)
+        takes = []
+        for b, m in ((2 * p, a), (2 * p + 1, a1)):
+            bit = (c >> np.uint32(b)) & np.uint32(1)
+            takes.append(m & (np.uint32(0) - bit) if b < mask_bits
+                         else m * bit)
+        acc = acc ^ takes[0] ^ takes[1]
+        if p < 3:
+            a = _xtime4(a1)
+    return acc
+
+
+@pytest.mark.parametrize("mask_bits", [0, 2])
+def test_swar_xtime_ladder_gives_every_product(mask_bits):
+    xs = np.arange(256, dtype=np.uint8)
+    coeffs = np.arange(256, dtype=np.uint32)[:, None]          # (256, 1)
+    for rot in range(4):                 # every x at every byte position
+        words = np.roll(xs, rot).view("<u4")                    # (64,)
+        got = _ladder_words(coeffs, words[None, :], mask_bits)
+        got = np.ascontiguousarray(got).view(np.uint8).reshape(256, 256)
+        assert np.array_equal(got, tref.GF_MUL_TABLE[:, np.roll(xs, rot)])
+    # one xtime of every byte: times 2 in the field
+    got = _xtime4(xs.view("<u4")).view(np.uint8)
+    assert np.array_equal(got, tref.GF_MUL_TABLE[2, xs])
+
+
+def _load_chunk(blocks, shift, c, L):
+    """The kernels' `load_chunk` in numpy: chunk c of a row starting
+    `shift` bytes into 16-byte block 0 of `blocks` ((n, 4) uint32), from
+    the two aligned blocks that cover it by funnel shifts; the second is
+    read only if it holds a byte of the row."""
+    lo = blocks[c]
+    if shift == 0:
+        return lo
+    hi = blocks[c + 1] if 16 * c + 16 - shift < L else np.zeros(4, np.uint32)
+    w = np.concatenate([lo, hi]).astype(np.uint64)
+    r = np.uint64((shift & 3) * 8)
+    q = shift >> 2
+
+    def fsr(n):                          # __funnelshift_r(w[n], w[n+1], r)
+        return ((w[n] | (w[n + 1] << np.uint64(32))) >> r) & \
+            np.uint64(0xFFFFFFFF)
+    return np.array([fsr(q + n) for n in range(4)], np.uint32)
+
+
+@pytest.mark.parametrize("L", [1, 15, 16, 17, 63, 64, 65])
+def test_funnel_shift_realignment_rebuilds_every_offset(L):
+    rng = np.random.default_rng(L)
+    for off in range(16):
+        n = -(-(off + L) // 16) * 16                 # the blocks it touches
+        buf = rng.integers(0, 256, n, dtype=np.uint8)
+        blocks = buf.view("<u4").reshape(-1, 4)
+        row = buf[off:off + L]
+        for c in range(-(-L // 16)):
+            got = _load_chunk(blocks, off, c, L).view(np.uint8)
+            want = row[16 * c:16 * c + 16]
+            assert np.array_equal(got[:want.size], want), (off, c)
+
+
 @pytest.mark.cuda
 def test_ladder_kernel_matches_plain_and_bitsliced_on_card(cuda_device):
+    """The ladder kernel against the plain ladder and the codec's kernel:
+    input column offsets 0-15 (rows at every alignment), lengths around
+    the 16-byte chunk, the output on the 16-byte pitch."""
     rng = np.random.default_rng(6)
     before = tkernel.ladder_launches
     calls = 0
     for m, k in LADDER_SWEEP + [(17, 20)]:
-        for L in [1, 3, 100, 1024, 2125, 65539]:
+        for L in [1, 3, 15, 16, 17, 63, 64, 65, 100, 1024, 2125, 65539]:
             G = rng.integers(0, 256, (m, k), dtype=np.uint8)
             base = torch.from_numpy(
-                rng.integers(0, 256, (k, L + 5), dtype=np.uint8)
+                rng.integers(0, 256, (k, L + 16), dtype=np.uint8)
             ).to(cuda_device)
-            for off in (0, 1, 3):                # strided column slices
+            for off in range(16):                # strided column slices
                 X = base[:, off:off + L]
                 got = tops.gf256_matmul(G, X, backend="ladder")
                 want = tref.gf256_matmul_ladder_ref(G, X)
@@ -424,6 +507,7 @@ def test_ladder_kernel_matches_plain_and_bitsliced_on_card(cuda_device):
                 torch.cuda.synchronize()
                 assert torch.equal(got, want), (m, k, L, off)
                 assert torch.equal(got, bitsliced), (m, k, L, off)
+                assert got.data_ptr() % 16 == 0 and got.stride(0) % 16 == 0
                 calls += 1
     assert tkernel.ladder_launches - before == calls
 
