@@ -43,7 +43,16 @@ points:
   with a checkpoint of the 6,495,827,972-byte train state through
   `make_store_for_checkpoints()` (RS(4+2) on the card), every other slab
   reclaimed, and `train(..., resume=True)` continuing to the straight
-  run's losses from a bit-identical restored state.
+  run's losses from a bit-identical restored state;
+- the scale-out frontends (phase 11), each on the store's default
+  configuration: `ShardedStore` with 4 shards in this process (phase 2's
+  mix read back bit for bit, a cross-shard `put_many` of 8 x 100 MB, its
+  2PC rolled back by a crash before the leader's decision and forward
+  by `restart_shard` + `resolve_indoubt` after a lost commit, and a
+  degraded GET through parity), `ProcessShardedStore` with 4 worker
+  processes over shared-memory rings (each worker on the card; the same
+  mix and 2PC checks; one worker SIGKILLed and its journal replayed on
+  the card by `restart_shard`) and with 2 workers over TCP.
 
 Every phase asserts; any failure exits non-zero. Prints timing lines,
 one `kernels` JSON line and, last, `{"ok": true, "device": {...}}`.
@@ -1368,6 +1377,369 @@ def train_phase(dev, card: str, cfg) -> dict:
             "grad_err": max(grad_err.values())}
 
 
+# ---- scale-out: phase 11 -------------------------------------------------
+
+SHARDS, TCP_SHARDS = 4, 2
+BATCH_OBJECTS = 8                # the cross-shard put_many: 8 x 100 MB
+TCP_OBJECTS = 4                  # (c): 4 x 100 MB
+RING_CAP = 1024 * MB             # largest ring: a 400 MB object always fits
+
+
+def store_mix(rand_u8, unit: int = MB):
+    """Phase 2's mix, made on the device from the seed: 100 x 1, 30 x 10,
+    16 x 100 and one 400 (in `unit`s, MB on the card), five of them
+    passed as host bytes. Returns (objects, values to PUT)."""
+    objects = {}
+    for n, size, tag in ((100, 1, "small"), (30, 10, "medium"),
+                         (16, 100, "large"), (1, 400, "huge")):
+        for i in range(n):
+            objects[f"{tag}/{i}"] = rand_u8(size * unit)
+    host = {"small/0", "small/1", "small/2", "medium/0", "large/15"}
+    values = {key: (t.cpu().numpy().tobytes() if key in host else t)
+              for key, t in objects.items()}
+    return objects, values
+
+
+def keys_on(router, per_shard: int, tag: str, shards=None):
+    """`per_shard` fresh keys on each of `shards` (all by default)."""
+    want = dict.fromkeys(range(router.num_shards) if shards is None
+                         else shards, per_shard)
+    out, i = [], 0
+    while any(want.values()):
+        key = f"{tag}/{i}"
+        i += 1
+        sid = router.shard_of(key)
+        if want.get(sid):
+            want[sid] -= 1
+            out.append(key)
+    return out
+
+
+def ring_bytes(rings: int):
+    """Ring size for `rings` shared-memory rings: the largest that fits
+    in 80% of /dev/shm's free space, up to `RING_CAP`. A write into an
+    over-committed segment is a SIGBUS, so never more than is free.
+    Returns (ring bytes, free bytes)."""
+    import os
+    st = os.statvfs("/dev/shm")
+    free = st.f_bavail * st.f_frsize
+    ring = min(RING_CAP, int(free * 0.8) // rings) // 4096 * 4096
+    assert ring >= 1 * MB, f"/dev/shm has {free} bytes free"
+    return ring, free
+
+
+def ring_use(st) -> list:
+    """Records (bytes, "a" ring or "i" inline) for every payload the
+    process store's transports pack from here on."""
+    seen = []
+    for shard in st.shards:
+        pack = shard._t.pack
+
+        def counted(value, pack=pack):
+            desc = pack(value)
+            seen.append((desc[2] if desc[0] == "a" else len(desc[1]),
+                         desc[0]))
+            return desc
+        shard._t.pack = counted
+    return seen
+
+
+def put_all(st, values) -> dict:
+    """Every value PUT one at a time (each call returns at its ack);
+    returns per-key seconds."""
+    put_s = {}
+    for key, val in values.items():
+        t = time.perf_counter()
+        assert st.put(key, val) == 1, key
+        put_s[key] = time.perf_counter() - t
+    return put_s
+
+
+def get_all(st, objects, sync) -> dict:
+    """Every object read back with `get_array`, bit for bit, on the
+    device it was made on; returns per-key seconds."""
+    import torch
+    get_s = {}
+    for key, want in objects.items():
+        t = time.perf_counter()
+        arr = st.get_array(key)
+        sync()
+        get_s[key] = time.perf_counter() - t
+        assert arr.device == want.device and torch.equal(arr, want), key
+    return get_s
+
+
+def rate(objects, seconds, keys=None) -> float:
+    """MB/s over `keys` (every timed key by default)."""
+    keys = list(seconds) if keys is None else keys
+    return (sum(objects[k].numel() for k in keys) / MB
+            / sum(seconds[k] for k in keys))
+
+
+def read_back(st, want, sync) -> None:
+    import torch
+    for key, val in want.items():
+        arr = st.get_array(key)
+        sync()
+        assert torch.equal(arr, val), key
+
+
+def two_pc(st, rand_u8, sync, unit: int, tag: str) -> dict:
+    """The cross-shard checks on any `ShardedStore` frontend:
+    - a `put_many` of 8 x 100 MB spanning every shard commits, timed
+      beside a one-shard batch of the same bytes (no 2PC);
+    - the leader crashing before its decision (`shard.decision`) rolls
+      every prepared shard back: the old versions are read everywhere;
+    - a commit submission lost after the decision (`shard.commit_submit`)
+      leaves one shard in doubt; it is killed, and `restart_shard` (its
+      journal replay and the `resolve_indoubt` sweep) rolls the batch
+      forward: the new versions are read everywhere, nothing pending.
+    Returns the timings."""
+    from repro_torch.core import FaultPlan, FaultPoint, InjectedCrash
+    keys = keys_on(st.router, BATCH_OBJECTS // st.num_shards, f"{tag}/2pc")
+
+    def batch():
+        return {key: rand_u8(100 * unit) for key in keys}
+
+    def crash_at(site, values):
+        st.faults = FaultPlan(seed=SEED).add(
+            FaultPoint(site=site, action="crash", hits=(1,)))
+        try:
+            st.put_many(values)
+        except InjectedCrash:
+            return
+        finally:
+            st.faults = None
+        raise AssertionError(f"no crash at {site}")
+
+    out = {}
+    old = batch()
+    sync()
+    t0 = st.tickets_issued()
+    t = time.perf_counter()
+    assert st.put_many(old) == dict.fromkeys(keys, 1)
+    out["put_many_s"] = time.perf_counter() - t
+    assert st.tickets_issued() == t0 + 1
+    read_back(st, old, sync)
+    one = keys_on(st.router, BATCH_OBJECTS, f"{tag}/one", shards=[0])
+    t = time.perf_counter()
+    assert st.put_many(dict(zip(one, old.values()))) == dict.fromkeys(one, 1)
+    out["one_shard_s"] = time.perf_counter() - t
+    assert st.tickets_issued() == t0 + 1       # no ticket: no 2PC
+
+    crash_at("shard.decision", batch())
+    assert st.indoubt_tickets() == []
+    read_back(st, old, sync)
+
+    new = batch()
+    crash_at("shard.commit_submit", new)
+    (ticket,) = st.indoubt_tickets()
+    (sid,) = [i for i, s in enumerate(st.shards) if s.indoubt_tickets()]
+    st.simulate_crash(shard=sid)
+    sweeps = []
+    sweep = st.resolve_indoubt
+
+    def timed_sweep():
+        t = time.perf_counter()
+        res = sweep()
+        sweeps.append((time.perf_counter() - t, res))
+        return res
+    st.resolve_indoubt = timed_sweep          # restart_shard's sweep
+    try:
+        t = time.perf_counter()
+        st.restart_shard(sid)
+        out["restart_s"] = time.perf_counter() - t
+    finally:
+        del st.resolve_indoubt
+    out["resolve_s"], resolved = sweeps[-1]
+    assert resolved == {ticket: "commit"}, resolved
+    assert st.resolve_indoubt() == {} and st.indoubt_tickets() == []
+    read_back(st, new, sync)
+    out["in_doubt_shard"] = sid
+    return out
+
+
+def scale_out_phase(dev, work: Path, card: str, rand_u8, single: dict,
+                    *, unit: int = MB, sync=None, cfg_kw=None) -> dict:
+    """Phase 11: the three scale-out frontends at deployment size, each
+    on the store's default configuration (RS(10+2), 1536 MB functions,
+    200 MB fragments, spill journal on, recovery off):
+    (a) `ShardedStore`, 4 shards in this process; (b) `ProcessShardedStore`,
+    4 worker processes over shared-memory rings, each with its own CUDA
+    context on the card; (c) `ProcessShardedStore`, 2 workers over TCP.
+    `single` holds phase 2's rates; `unit`, `sync` and `cfg_kw` shrink it
+    for a rehearsal on the CPU. Returns the codec kernel's launches in
+    (a), where they are counted (the workers count their own)."""
+    import os
+    from multiprocessing import forkserver, resource_tracker
+
+    import torch
+
+    from repro_torch.core import ProcessShardedStore, ShardedStore
+    from repro_torch.core import StoreConfig
+    from repro_torch.core.ipc import SEGMENT_PREFIX
+    from repro_torch.kernels.rs_gf256 import kernel
+    sync = sync or torch.cuda.synchronize
+    cfg_kw = dict(cfg_kw or {})
+
+    def cfg(name):
+        return StoreConfig(enable_recovery=False,
+                           spill_dir=str(work / f"spill-{name}"), **cfg_kw)
+
+    objects, values = store_mix(rand_u8, unit)
+    total = sum(t.numel() for t in objects.values())
+    large = [f"large/{i}" for i in range(15)]
+    rows, two, wall = {"phase 2 single InfiniStore": single}, {}, {}
+
+    def report(name, st, put_s, get_s, objs=objects):
+        big = [k for k in large if k in objs] or list(objs)
+        rows[name] = {"put": rate(objs, put_s),
+                      "put_large": rate(objs, put_s, big),
+                      "get": rate(objs, get_s),
+                      "get_large": rate(objs, get_s, big)}
+        print(f"phase 11{name[0]} {name}: {len(objs)} objects, "
+              f"{sum(t.numel() for t in objs.values())} bytes PUT and read "
+              f"back bit for bit; shard balance {st.shard_balance()}")
+
+    # ---- (a) ShardedStore, 4 shards in this process ----------------------
+    t_a = time.perf_counter()
+    st = ShardedStore(cfg("a"), num_shards=SHARDS, seed=SEED)
+    assert (st.cfg.ec.k, st.cfg.ec.p) == (10, 2) and st.device == dev
+    kernel.launches = 0
+    put_s = put_all(st, values)
+    report("a ShardedStore", st, put_s, get_all(st, objects, sync))
+    two["a"] = two_pc(st, rand_u8, sync, unit, "a")
+    # a degraded GET on one shard: a reclaimed slab is read through parity
+    assert st.flush_writeback(timeout=600.0)
+    key = next(k for k in large if st.router.shard_of(k) == 1)
+    shard = st.shards[1]
+    fid = shard.chunk_map[f"{key}|1/f0#0"]
+    shard.inject_failure(fid)
+    inv0 = shard.codec.cache_info()["inversions"]
+    read_back(st, {key: objects[key]}, sync)
+    assert shard.codec.cache_info()["inversions"] > inv0
+    launches = kernel.launches
+    assert launches >= len(values), launches
+    assert st.close()
+    del st, shard
+    print(f"phase 11a 2PC: 8 x 100 MB over {SHARDS} shards committed; "
+          f"decision crash rolled back; commit_submit crash on shard "
+          f"{two['a']['in_doubt_shard']} rolled forward by restart_shard "
+          f"+ resolve_indoubt; degraded GET of {key} on shard 1 through "
+          f"parity (slab {fid}); codec kernel launches {launches}")
+    shutil.rmtree(work / "spill-a", ignore_errors=True)
+    wall["a"] = time.perf_counter() - t_a
+
+    # ---- (b) ProcessShardedStore, 4 workers over shm rings ---------------
+    t_b = time.perf_counter()
+    ring, shm_free = ring_bytes(2 * SHARDS)
+    st = ProcessShardedStore(cfg("b"), num_shards=SHARDS, seed=SEED,
+                             cos_root=str(work / "cos-b"), arena_bytes=ring)
+    boot_s = time.perf_counter() - t_b
+    assert st.worker_devices() == [dev.type] * SHARDS, st.worker_devices()
+    print(f"phase 11b workers: pids {st.worker_pids()} on "
+          f"{st.worker_devices()}, booted in {boot_s:.3f} s; rings {ring} "
+          f"bytes x {2 * SHARDS} (/dev/shm {shm_free} bytes free)")
+    packed = ring_use(st)
+    put_s = put_all(st, values)
+    by_path = {}
+    for n, how in packed:
+        path = f"{n} bytes {'ring' if how == 'a' else 'inline'}"
+        by_path[path] = by_path.get(path, 0) + 1
+    print(f"phase 11b PUT payloads by size and path: {json.dumps(by_path)}")
+    # SIGKILL one worker holding acked, unpersisted writes: the others
+    # keep serving; its restart replays its journal on the card; then
+    # every acked object is read back (the timed GET of the mix)
+    st.pause_writeback()
+    victim = 2
+    acked = {k: rand_u8(n * unit) for k, n in zip(
+        keys_on(st.router, 4, "b/kill", shards=[victim]), (100, 100, 10, 1))}
+    put_all(st, acked)
+    st.simulate_crash(shard=victim)
+    others = [k for k in objects if st.router.shard_of(k) != victim]
+    read_back(st, {k: objects[k] for k in others[::8]}, sync)
+    t = time.perf_counter()
+    st.restart_shard(victim)
+    restart_s = time.perf_counter() - t
+    st.resume_writeback()
+    assert st.worker_devices()[victim] == dev.type
+    get_s = get_all(st, objects, sync)
+    read_back(st, acked, sync)
+    report("b ProcessShardedStore shm", st, put_s, get_s)
+    print(f"phase 11b kill/restart: worker {victim} SIGKILLed holding "
+          f"{len(acked)} acked unpersisted objects; the other shards served "
+          f"{len(others[::8])} reads meanwhile; restart_shard (journal "
+          f"replay on the card) {restart_s:.3f} s; every acked object read "
+          f"back after it")
+    two["b"] = two_pc(st, rand_u8, sync, unit, "b")
+    assert st.flush_writeback(timeout=600.0)
+    assert st.close()
+    del st
+    mine = f"{SEGMENT_PREFIX}{os.getpid()}-"
+    assert not [n for n in os.listdir("/dev/shm") if n.startswith(mine)]
+    shutil.rmtree(work / "spill-b", ignore_errors=True)
+    shutil.rmtree(work / "cos-b", ignore_errors=True)
+    wall["b"] = time.perf_counter() - t_b
+
+    # ---- (c) ProcessShardedStore, 2 workers over TCP ---------------------
+    t_c = time.perf_counter()
+    st = ProcessShardedStore(cfg("c"), num_shards=TCP_SHARDS, seed=SEED,
+                             cos_root=str(work / "cos-c"), transport="tcp")
+    assert st.worker_devices() == [dev.type] * TCP_SHARDS
+    keys = keys_on(st.router, TCP_OBJECTS // TCP_SHARDS, "c")
+    tcp_obj = {k: rand_u8(100 * unit) for k in keys}
+    put_s = put_all(st, tcp_obj)
+    report("c ProcessShardedStore tcp", st, put_s,
+           get_all(st, tcp_obj, sync), tcp_obj)
+    newer = {k: rand_u8(100 * unit) for k in keys}
+    t = time.perf_counter()
+    assert st.put_many(newer) == dict.fromkeys(keys, 2)
+    tcp_2pc_s = time.perf_counter() - t
+    read_back(st, newer, sync)
+    st.pause_writeback()
+    acked = {keys_on(st.router, 1, "c/kill", shards=[0])[0]:
+             rand_u8(100 * unit)}
+    put_all(st, acked)
+    st.simulate_crash(shard=0)
+    t = time.perf_counter()
+    st.restart_shard(0)
+    tcp_restart_s = time.perf_counter() - t
+    st.resume_writeback()
+    read_back(st, {**newer, **acked}, sync)
+    assert st.flush_writeback(timeout=600.0)
+    print(f"phase 11c tcp: {TCP_SHARDS} workers on {st.worker_devices()}; "
+          f"a cross-shard put_many of the {len(keys)} x 100 MB in "
+          f"{tcp_2pc_s:.3f} s; worker 0 SIGKILLed holding 1 acked "
+          f"unpersisted object and restarted in {tcp_restart_s:.3f} s; all "
+          f"read back bit for bit")
+    assert st.close()
+    del st
+    shutil.rmtree(work / "spill-c", ignore_errors=True)
+    shutil.rmtree(work / "cos-c", ignore_errors=True)
+    wall["c"] = time.perf_counter() - t_c
+    # the workers are gone; so go the forkserver they were forked from
+    # and the shared-memory resource tracker
+    forkserver._forkserver._stop()
+    resource_tracker._resource_tracker._stop()
+
+    for name, r in rows.items():
+        print(f"scale-out {name}: PUT-ack {r['put']:.1f} MB/s (100 MB "
+              f"objects {r['put_large']:.1f}), GET get_array "
+              f"{r['get']:.1f} MB/s (100 MB objects {r['get_large']:.1f}) "
+              f"| {card}")
+    for name, tp in two.items():
+        print(f"scale-out 2PC ({name}): put_many of 8 x 100 MB over "
+              f"{SHARDS} shards {tp['put_many_s']:.3f} s beside "
+              f"{tp['one_shard_s']:.3f} s for the same bytes on one shard; "
+              f"restart_shard {tp['restart_s']:.3f} s, its resolve_indoubt "
+              f"sweep {tp['resolve_s']:.3f} s | {card}")
+    print(f"scale-out restart_shard after a SIGKILL (journal replay on the "
+          f"card): shm {restart_s:.3f} s, tcp {tcp_restart_s:.3f} s; wall "
+          f"time (a) {wall['a']:.1f} s, (b) {wall['b']:.1f} s, (c) "
+          f"{wall['c']:.1f} s; os.cpu_count() {os.cpu_count()} | {card}")
+    return {"launches": launches}
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description="Drive the port on one GPU.")
@@ -1665,6 +2037,8 @@ def main(argv=None) -> int:
           f"{dec['design_ops']} integer ops) | {card}")
     print(f"replay: {replay_s:.3f} s for {replay_mb:.1f} MB | {card}")
     print("launches per phase: " + json.dumps(counts))
+    single = {"put": rate(objects, put_s), "put_large": put_large_mbs,
+              "get": rate(objects, get_s), "get_large": get_large_mbs}
     del objects, values, frag
     torch.cuda.empty_cache()
 
@@ -1688,6 +2062,12 @@ def main(argv=None) -> int:
             cfg15.dtype) == (24, 1024, 16, 16, 64, 2816, 151936, True,
                              True, "bfloat16")
     training = train_phase(dev, card, cfg15)
+    torch.cuda.empty_cache()
+
+    # ---- phase 11: the sharded, process and TCP frontends --------------
+    work.mkdir(parents=True, exist_ok=True)
+    scale_out = scale_out_phase(dev, work, card, rand_u8, single)
+    shutil.rmtree(work, ignore_errors=True)
 
     enc = timing["encode (2,10)"]
     print(json.dumps({"kernels": [{
@@ -1697,7 +2077,8 @@ def main(argv=None) -> int:
         "replaces": "src/repro/kernels/rs_gf256/kernel.py:58",
         "launches": counts["put"] + counts["get"]
         + counts["degraded_get"] + counts["replay"]
-        + serving["gf_evict_launches"] + training["gf_launches"],
+        + serving["gf_evict_launches"] + training["gf_launches"]
+        + scale_out["launches"],
         "max_abs_err": max_err,
         "ms": enc["ms"],
         "plain_ms": enc["plain_ms"],

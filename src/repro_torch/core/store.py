@@ -2555,11 +2555,16 @@ class InfiniStore:
 
 
 class ShardWorkerDied(ConnectionError):
-    """The store's daemon is unreachable: a call was submitted to a
-    closed store. The same error class the JAX package's frontends raise
-    for an unreachable shard (there defined in `transport.py`, which this
-    package has not ported yet), so callers need one except-clause.
-    Carries `shard_id`, the transport `epoch` and the failed `op`."""
+    """A shard's worker is unreachable with RPCs outstanding (or a new
+    RPC was issued against a dead/partitioned worker): process death,
+    pipe EOF, socket reset, heartbeat timeout, per-RPC deadline, or a
+    call submitted to a closed in-process store — every such failure
+    maps here, on every frontend (`transport.py` re-exports this class,
+    so callers need one except-clause). The shard's durable state (spill
+    journal, COS root) is intact; `restart_shard` (or a transport
+    reconnect) rebuilds the path. Carries the failure context:
+    `shard_id`, the transport `epoch` at failure time, and the `op` that
+    failed (None when not op-bound)."""
 
     def __init__(self, msg: str = "", *, shard_id: Optional[int] = None,
                  epoch: Optional[int] = None,

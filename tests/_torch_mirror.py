@@ -4,10 +4,14 @@
 imports at `repro_torch` instead of `repro`, makes the `StoreConfig`
 and `RSCodec` it names default to `device="cpu"` (the port's entry
 points default to the card), replaces the `tiny_store` fixture with the
-port's, and returns the resulting test functions for a
-`tests/test_torch_mirror_*.py` module to publish. Tests that check what
-the port deliberately does differently are left out by name, each with
-its reason (ROADMAP, queue 3).
+port's, and returns the resulting test functions and the module's own
+fixtures for a `tests/test_torch_mirror_*.py` module to publish. Tests
+that check what the port deliberately does differently are left out by
+name, each with its reason (ROADMAP, queue 3).
+
+The CPU-default subclasses are defined at module level so that a store
+config can be pickled into a shard worker process, which imports this
+module to rebuild it.
 """
 from __future__ import annotations
 
@@ -18,7 +22,23 @@ from pathlib import Path
 
 import pytest
 
+from repro_torch.core.ec import RSCodec as _PortRSCodec
+from repro_torch.core.store import StoreConfig as _PortStoreConfig
+
 HERE = Path(__file__).resolve().parent
+
+
+@dataclasses.dataclass
+class CPUStoreConfig(_PortStoreConfig):
+    """The port's `StoreConfig` with the device defaulting to the CPU."""
+    device: str = "cpu"
+
+
+class CPURSCodec(_PortRSCodec):
+    """The port's `RSCodec` with the device defaulting to the CPU."""
+
+    def __init__(self, *args, device="cpu", **kw):
+        super().__init__(*args, device=device, **kw)
 
 
 @pytest.fixture
@@ -55,33 +75,35 @@ def _cpu_defaults(ns: dict) -> None:
     whose device defaults to the CPU (looked up at call time, so every
     store and codec the tests build runs the plain PyTorch product)."""
     if "StoreConfig" in ns:
-        @dataclasses.dataclass
-        class StoreConfig(ns["StoreConfig"]):
-            device: str = "cpu"
-        ns["StoreConfig"] = StoreConfig
+        ns["StoreConfig"] = CPUStoreConfig
     if "RSCodec" in ns:
-        base = ns["RSCodec"]
-
-        class RSCodec(base):
-            def __init__(self, *args, device="cpu", **kw):
-                super().__init__(*args, device=device, **kw)
-        ns["RSCodec"] = RSCodec
+        ns["RSCodec"] = CPURSCodec
 
 
-def mirror(filename: str, skip: dict | None = None) -> dict:
-    """Test functions of `tests/<filename>` run against the port, plus
-    the port's `tiny_store` fixture; `skip` maps left-out test names to
-    the reason."""
+def _is_fixture(obj) -> bool:
+    return type(obj).__name__ == "FixtureFunctionDefinition" \
+        or hasattr(obj, "_pytestfixturefunction")
+
+
+def mirror(filename: str, skip: dict | None = None,
+           overrides: dict | None = None) -> dict:
+    """Test functions, test classes and fixtures of `tests/<filename>`
+    run against the port, plus the port's `tiny_store` fixture; `skip` maps left-out
+    test names to the reason, `overrides` rebinds module globals the
+    tests read at call time (e.g. the source tree a lint test scans)."""
     path = HERE / filename
     module = types.ModuleType(f"torch_mirror_{path.stem}")
     module.__file__ = str(path)
     code = compile(port_source(path.read_text()), str(path), "exec")
     exec(code, module.__dict__)
     _cpu_defaults(module.__dict__)
+    module.__dict__.update(overrides or {})
     out = {"tiny_store": tiny_store}
     for name, obj in module.__dict__.items():
-        if name.startswith("test") and callable(obj) \
+        if name.startswith(("test", "Test")) and callable(obj) \
                 and name not in (skip or {}):
+            out[name] = obj
+        elif _is_fixture(obj) or name == "pytestmark":
             out[name] = obj
     missing = set(skip or {}) - set(module.__dict__)
     assert not missing, f"{filename}: no such tests {sorted(missing)}"

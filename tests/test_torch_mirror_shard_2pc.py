@@ -1,0 +1,4 @@
+"""tests/test_shard_2pc.py's own test bodies run against the port (device="cpu")."""
+from _torch_mirror import mirror
+
+globals().update(mirror("test_shard_2pc.py"))

@@ -1,10 +1,11 @@
 """The port stands alone: nothing under src/repro_torch/ and not
 chip_smoke.py imports jax or the JAX package, importing the store, the
-serving stack, the models, the configs and the training stack leaves
-jax out of sys.modules,
-and the default device of the store and of the serving engine (the
-card) is refused — never silently replaced by the CPU — where CUDA is
-absent."""
+scale-out frontends, the devtools, the serving stack, the models, the
+configs and the training stack leaves jax out of sys.modules, and the
+default device of the store, of the sharded and process frontends and
+of the serving engine (the card) is refused — never silently replaced
+by the CPU — where CUDA is absent. The process frontend's forkserver
+preloads only the port's modules, and importing them touches no CUDA."""
 import ast
 import os
 import subprocess
@@ -51,6 +52,52 @@ def _imports_leave_jax_unloaded(modules: str):
 
 def test_store_import_leaves_jax_unloaded():
     _imports_leave_jax_unloaded("repro_torch.core.store, repro_torch.core")
+
+
+def test_scale_out_and_devtools_import_leaves_jax_unloaded():
+    _imports_leave_jax_unloaded(
+        "repro_torch.core.shard, repro_torch.core.ipc, "
+        "repro_torch.core.transport, repro_torch.core.host, "
+        "repro_torch.core.netshard, repro_torch.devtools.lint, "
+        "repro_torch.devtools.witness")
+
+
+def test_forkserver_preloads_only_port_modules_without_cuda():
+    from repro_torch.core import host
+    assert host.FORKSERVER_PRELOAD
+    assert all(m.startswith("repro_torch.")
+               for m in host.FORKSERVER_PRELOAD)
+    # the preload must not create a CUDA context the workers would
+    # inherit: importing it initialises nothing on the device
+    code = ("import sys, torch; "
+            + "; ".join(f"import {m}" for m in host.FORKSERVER_PRELOAD)
+            + "; print(torch.cuda.is_initialized())")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip() == "False"
+    # workers start by forkserver (or spawn), never by fork
+    assert host._host_context().get_start_method() in ("forkserver",
+                                                      "spawn")
+    with pytest.raises(ValueError, match="CUDA context"):
+        host._host_context("fork")
+
+
+def test_default_sharded_frontends_raise_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("the machine has a card: the default device is usable")
+    from repro_torch.core import ProcessShardedStore, ShardedStore
+    from repro_torch.core.ipc import SEGMENT_PREFIX
+    for build in (ShardedStore, ProcessShardedStore,
+                  lambda: ProcessShardedStore(transport="tcp")):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            build()
+    # refused in the parent, before any worker or ring was made
+    shm = Path("/dev/shm")
+    if shm.is_dir():
+        mine = f"{SEGMENT_PREFIX}{os.getpid()}-"
+        assert not [n for n in os.listdir(shm) if n.startswith(mine)]
 
 
 def test_serving_import_leaves_jax_unloaded():
