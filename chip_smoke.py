@@ -52,7 +52,37 @@ points:
   degraded GET through parity), `ProcessShardedStore` with 4 worker
   processes over shared-memory rings (each worker on the card; the same
   mix and 2PC checks; one worker SIGKILLed and its journal replayed on
-  the card by `restart_shard`) and with 2 workers over TCP.
+  the card by `restart_shard`) and with 2 workers over TCP;
+- the MoE, RWKV6 and RG-LRU families (phase 12), each at published
+  widths and full depth, bf16 weights from a seed:
+  (a) Qwen1.5-MoE-A2.7B (14,315,784,192 parameters) served by
+  `ServeEngine` over the SMS-paged KV cache, 16 x 2048-token prompts and
+  32 greedy tokens at the published capacity factor 1.25 (capacity 172
+  per expert and sequence), with 24 paged-attention and 49 RMSNorm
+  launches asserted per decode step and the prefill's dropped (token,
+  expert) pairs printed; the kernel path held to the plain contiguous
+  path in bf16 (teacher-forced logits within 3e-2), the MoE FFN of one
+  full-width layer held to `moe_ffn_dense` at drop-free capacity in f32
+  (1e-4) and to itself (two runs bit-identical), and f32 tokens equal to
+  the plain path at full width with 4 of the 24 layers (cut: 57 GB of
+  f32 weights do not fit beside the bf16 model); paged attention timed
+  at this shape (H = K = 16, a head group of 1);
+  (b) RWKV6-3B: 8 x 2048 tokens prefilled through `wkv_chunked`, 32
+  greedy steps through `wkv_scan`; the post-prefill state saved through
+  `Checkpointer` on `StoreConfig(enable_recovery=False)`, the slab
+  holding chunk #0 of its `wkv` leaf reclaimed, and the state restored
+  through the RS decode bit-identical, decoding on to the uninterrupted
+  run's tokens; chunked vs scan on layer 0's real inputs (2e-3) and f32
+  decode vs teacher forcing (B 2, S 256; 5e-4);
+  (c) RecurrentGemma-2B: 8 x 3000 tokens (past the 2048-token window,
+  not a multiple of it), then 32 greedy steps over the wrapped ring; the
+  torch scan against the sequential recurrence on the first block's
+  real inputs (1e-5), f32 decode vs teacher forcing across the wrap (B
+  2, S 2100, 4 steps; 5e-4), RMSNorm at d = 2560 against its plain
+  version and timed.
+  Each model prints prefill tokens/s beside its matrix-product flop
+  bound at 989 TFLOP/s and the decode step's median and max beside the
+  bytes a step reads at 3.35 TB/s.
 
 Every phase asserts; any failure exits non-zero. Prints timing lines,
 one `kernels` JSON line and, last, `{"ok": true, "device": {...}}`.
@@ -1740,6 +1770,935 @@ def scale_out_phase(dev, work: Path, card: str, rand_u8, single: dict,
     return {"launches": launches}
 
 
+# ---- the MoE, RWKV6 and RG-LRU families: phase 12 -------------------------
+
+QWEN_MOE, RWKV6, RGEMMA = "qwen2-moe-a2.7b", "rwkv6-3b", "recurrentgemma-2b"
+MOE_NEW_TOKENS = 32
+MOE_MAX_LEN = 2112               # 33 pages of 64: prompt + 32 new tokens
+MOE_F32_LAYERS = 4               # of 24: the f32 copy beside the bf16 model
+MOE_DENSE_SHAPE = (2, 128)       # (B, S) of the MoE-vs-dense check
+REC_BATCH, REC_STEPS = 8, 32
+RWKV_PROMPT = 2048
+RGEMMA_PROMPT = 3000             # past the 2048-token window, not a multiple
+RWKV_TF, RGEMMA_TF = (2, 256), (2, 2100)    # f32 teacher forcing: (B, S)
+RGEMMA_TF_STEPS = 4
+TF_DECODE_TOL = 5e-4             # tests/test_models_smoke.py's
+# at full width the forward differs from itself by ~2e-4 between two
+# sequence lengths (RG-LRU's attention scores spread by ~256 under the
+# reference's init): the decode path is held within 4x that floor
+TF_FLOOR_FACTOR = 4
+WKV_TOL = 2e-3                   # tests/test_rwkv.py's chunked vs scan
+SCAN_TOL = 1e-5
+MOE_DENSE_TOL = 1e-4             # tests/test_moe.py's
+
+
+class DispatchRecorder:
+    """While installed, wraps `moe.dispatch_indices`: per call, the
+    tokens per group, the (token, expert) pairs that capacity dropped and
+    the experts that got a pair, kept as device tensors (no host
+    sync)."""
+
+    def __init__(self, moe_mod):
+        self.mod, self.orig = moe_mod, moe_mod.dispatch_indices
+        self.calls = []
+
+    def __enter__(self):
+        import torch
+
+        def wrapped(expert_ids, gate_vals, num_experts, cap):
+            disp, gate_slot = self.orig(expert_ids, gate_vals, num_experts,
+                                        cap)
+            T = expert_ids.shape[-2]
+            dropped = expert_ids.numel() - (disp < T).sum()
+            used = (torch.bincount(expert_ids.reshape(-1),
+                                   minlength=num_experts) > 0).sum()
+            self.calls.append((T, expert_ids.numel(), dropped, used))
+            return disp, gate_slot
+
+        self.mod.dispatch_indices = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.dispatch_indices = self.orig
+
+
+def paged_attention_f64(q, k_pool, v_pool, block_table, lens):
+    """The plain paged decode attention (`paged_attention.ref`) computed
+    in float64 throughout: the exact answer the f32 versions round."""
+    import math
+
+    import torch
+    B, H, hd = q.shape
+    _, P, ps, K, _ = k_pool.shape
+    rows = torch.arange(B, device=q.device)[:, None]
+    idx = block_table.long()
+    k = k_pool[rows, idx].reshape(B, P * ps, K, hd).double()
+    v = v_pool[rows, idx].reshape(B, P * ps, K, hd).double()
+    s = torch.einsum("bkgd,btkd->bkgt",
+                     q.reshape(B, K, H // K, hd).double(), k) / math.sqrt(hd)
+    pos = torch.arange(P * ps, device=q.device)
+    s = torch.where((pos[None, :] < lens[:, None])[:, None, None, :], s,
+                    -1e300)
+    return torch.einsum("bkgt,btkd->bkgd", torch.softmax(s, dim=-1),
+                        v).reshape(B, H, hd)
+
+
+class DecodeAttentionProbe:
+    """While installed, wraps the decode attention the transformer calls:
+    the paged kernel (`transformer.paged_decode_attention`) or the plain
+    path's `layers.decode_attention_grouped`, and keeps every call's
+    output in f32. Each kernel call is checked on its own inputs: in
+    bf16 against the plain version within phase 6's tolerance; in f32
+    against the exact (float64) answer, no farther from it than the f32
+    plain version is, or than phase 6's f32 tolerance times the output's
+    largest magnitude (it raises otherwise). On the plain path it takes
+    the attention scores' spread and the gap between each query's two
+    largest scores at call `probe`."""
+
+    def __init__(self, transformer_mod, layers_mod, probe: int = 1):
+        self.t, self.l = transformer_mod, layers_mod
+        self.paged = transformer_mod.paged_decode_attention
+        self.grouped = layers_mod.decode_attention_grouped
+        self.outs, self.errs, self.plain_errs = [], [], []
+        self.probe, self.scores = probe, None
+
+    def __enter__(self):
+        import math
+
+        import torch
+        from repro_torch.kernels.paged_attention.ref import \
+            paged_decode_attention_ref
+
+        def paged(q, kc, vc, table, lens):
+            out = self.paged(q, kc, vc, table, lens)
+            want = paged_decode_attention_ref(q, kc, vc, table, lens)
+            if q.dtype == torch.bfloat16:
+                torch.testing.assert_close(out.float(), want,
+                                           atol=PA_TOL["bfloat16"],
+                                           rtol=PA_TOL["bfloat16"])
+                self.errs.append(float((out.float() - want).abs().max()))
+            else:
+                exact = paged_attention_f64(q, kc, vc, table, lens)
+                err = float((out.double() - exact).abs().max())
+                plain = float((want.double() - exact).abs().max())
+                limit = max(plain, PA_TOL["float32"]
+                            * float(exact.abs().max()))
+                assert err <= limit, (err, plain, limit)
+                self.errs.append(err)
+                self.plain_errs.append(plain)
+            self.outs.append(out.float()[:, None])
+            return out
+
+        def grouped(q, kc, vc, cache_len, **kw):
+            out = self.grouped(q, kc, vc, cache_len, **kw)
+            if len(self.outs) == self.probe:
+                n = int(cache_len)
+                G = q.shape[2] // kc.shape[2]
+                k = kc[:, :n].float().repeat_interleave(G, dim=2)
+                s = torch.einsum("bhd,bthd->bht", q[:, 0].float(), k) \
+                    / math.sqrt(q.shape[-1])
+                top = s.topk(2, dim=-1).values
+                self.scores = (float(s.std()),
+                               float((top[..., 0] - top[..., 1]).median()))
+            self.outs.append(out.float())
+            return out
+
+        self.t.paged_decode_attention = paged
+        self.l.decode_attention_grouped = grouped
+        return self
+
+    def __exit__(self, *exc):
+        self.t.paged_decode_attention = self.paged
+        self.l.decode_attention_grouped = self.grouped
+
+
+def param_bytes(params, skip=()) -> int:
+    return sum(p.numel() * p.element_size() for k, p in params.items()
+               if not k.startswith(skip))
+
+
+def step_times(seconds) -> str:
+    ms = sorted(x * 1e3 for x in seconds)
+    return f"median {ms[len(ms) // 2]:.3f} ms, max {ms[-1]:.3f} ms"
+
+
+def greedy_steps(model, params, tok, state, steps):
+    """`steps` greedy decode steps of a recurrent model, each timed up to
+    its tokens reaching the host: (tokens (B, steps), seconds, state)."""
+    import torch
+    toks, secs = [], []
+    for _ in range(steps):
+        t = time.perf_counter()
+        lg, state = model.decode_step(params, {"token": tok}, state)
+        tok = lg[:, -1].argmax(-1).to(torch.int32)[:, None]
+        toks.append(tok[:, 0].cpu())
+        secs.append(time.perf_counter() - t)
+    return torch.stack(toks, 1), secs, state
+
+
+def teacher_forcing_check(model, params, toks, S, steps):
+    """Largest |logit| difference between prefill(toks[:, :S]) + `steps`
+    decode steps fed toks[:, S + i] and one forward over all S + steps
+    tokens (tests/test_models_smoke.py's check, extended over steps),
+    and the f32 floor of that comparison: the largest difference of the
+    forward with itself at the same positions, run over S + i + 1
+    tokens instead (the same function, blocked and summed otherwise)."""
+    full, _ = model.forward(params, {"tokens": toks})
+    _, state = model.prefill(params, {"tokens": toks[:, :S]})
+    worst = floor = 0.0
+    for i in range(steps):
+        lg, state = model.decode_step(params, {"token": toks[:, S + i:
+                                                             S + i + 1]},
+                                      state)
+        worst = max(worst, float((lg[:, 0] - full[:, S + i]).abs().max()))
+        if steps > 1:
+            part, _ = model.forward(params, {"tokens": toks[:, :S + i + 1]})
+            floor = max(floor, float((part[:, -1] - full[:, S + i]).abs()
+                                     .max()))
+            del part
+    del full, state
+    return worst, floor
+
+
+def rms_at(dev, shapes, card, label) -> dict:
+    """RMSNorm kernel vs its plain version at `shapes` in f32 and bf16
+    (max abs error), then timed in bf16 at the first shape (the prefill
+    ln) and the last (the decode ln) beside its bound, the plain version,
+    `F.rms_norm` and a device copy of x."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.rmsnorm import kernel as rms_kernel
+    from repro_torch.kernels.rmsnorm.ops import rms_norm_op
+    from repro_torch.kernels.rmsnorm.ref import rms_norm_ref
+    worst = 0.0
+    for dname in ("float32", "bfloat16"):
+        dtype = getattr(torch, dname)
+        for i, shape in enumerate(shapes):
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(i)
+            x = torch.randn(shape, generator=gen, device=dev).to(dtype)
+            w = (torch.randn(shape[-1:], generator=gen, device=dev) * 0.1
+                 + 1.0).to(dtype)
+            got, want = rms_norm_op(x, w), rms_norm_ref(x, w)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(got.float(), want.float(),
+                                       atol=RMS_TOL[dname],
+                                       rtol=RMS_TOL[dname])
+            worst = max(worst, float((got.float() - want.float()).abs()
+                                     .max()))
+    out = {"max_abs_err": worst}
+    for shape, which in ((shapes[0], "prefill ln"), (shapes[-1],
+                                                     "decode ln")):
+        x = torch.randn(shape, device=dev, dtype=torch.bfloat16)
+        w = torch.ones(shape[-1], device=dev, dtype=torch.bfloat16)
+        ms = event_ms(lambda: rms_kernel.rms_norm_cuda(x, w, 1e-6), reps=50)
+        plain = event_ms(lambda: rms_norm_ref(x, w, 1e-6), reps=10)
+        lib_ms = event_ms(lambda: F.rms_norm(x, (shape[-1],), w, 1e-6),
+                          reps=50)
+        dst = torch.empty_like(x)
+        copy_ms = event_ms(lambda: dst.copy_(x), reps=50)
+        nbytes = 2 * x.numel() * 2 + w.numel() * 2
+        b_ms, by = bound(nbytes, 3 * x.numel(), ops_per_s=F32_FLOPS_PER_S)
+        lay = rms_kernel.plan(shape[-1], 2, True, x.numel() // shape[-1],
+                              _build.sm_count(dev))
+        out[which] = dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=by,
+                          library_ms=lib_ms)
+        print(f"kernel rmsnorm {label} {which} {shape} bf16 ({lay}): "
+              f"{ms * 1e3:.2f} us = {100 * b_ms / ms:.1f}% of its bound | "
+              f"bound {b_ms * 1e3:.2f} us by {by} ({nbytes} bytes) | plain "
+              f"{plain * 1e3:.2f} us | F.rms_norm {lib_ms * 1e3:.2f} us | "
+              f"device copy of x {copy_ms * 1e3:.2f} us | {card}")
+    return out
+
+
+def moe_prefill_flops(cfg, B: int, S: int, kept_pairs: int) -> int:
+    """Matrix-product flops of an MoE prefill: per token the attention
+    projections, the router and the shared expert; causal attention; the
+    routed experts for the (token, expert) pairs kept (summed over
+    layers), and the last token's logits."""
+    d, H, K, hd, m = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+                      cfg.head_dim, cfg.moe)
+    per_tok = 2 * (d * H * hd + 2 * d * K * hd + H * hd * d
+                   + d * m.num_experts + 3 * d * m.d_shared + d)
+    attn = 2 * 2 * H * hd * (S * (S + 1) // 2)
+    return cfg.num_layers * B * (S * per_tok + attn) \
+        + kept_pairs * 2 * 3 * d * m.d_expert + 2 * B * cfg.vocab_size * d
+
+
+def moe_serve(dev, card, cfg) -> dict:
+    """Phase 12 (a): Qwen1.5-MoE-A2.7B served at published widths and
+    full depth by `ServeEngine` over the SMS-paged KV cache, the kernel
+    path held to the plain contiguous path, the MoE FFN to its dense
+    oracle and to itself, f32 tokens at 4 of 24 layers, and paged
+    attention timed at G = 1."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.paged_attention import kernel as pa_kernel
+    from repro_torch.kernels.paged_attention.ref import \
+        paged_decode_attention_ref
+    from repro_torch.kernels.rmsnorm import kernel as rms_kernel
+    from repro_torch.kernels.rs_gf256 import kernel as gf_kernel
+    from repro_torch.models import build_model, layers, moe, transformer
+    from repro_torch.models.transformer import (_gather_pages, _split_layers,
+                                                init_params)
+    from repro_torch.serving import ServeConfig, ServeEngine
+
+    m = cfg.moe
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    t = time.perf_counter()
+    params = init_params(cfg, gen)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.values())
+    weight_bytes = param_bytes(params)
+    print(f"phase 12a model: {QWEN_MOE} at published widths and depth, "
+          f"{n_params} params ({weight_bytes} bytes bf16) from seed {SEED} "
+          f"on the card in {time.perf_counter() - t:.3f} s")
+
+    eng = ServeEngine(cfg, ServeConfig(batch_slots=SLOTS, max_len=MOE_MAX_LEN,
+                                       page_size=PAGE),
+                      params=params, device=dev)
+    kv = eng.kv
+    rng = np.random.default_rng(SEED + 12)
+    prompts = rng.integers(0, cfg.vocab_size, (SLOTS, PROMPT)).astype(
+        np.int32)
+    torch.cuda.synchronize()
+    rms_kernel.launches = pa_kernel.launches = gf_kernel.launches = 0
+    t = time.perf_counter()
+    out = eng.generate(prompts, MOE_NEW_TOKENS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = {"rmsnorm": rms_kernel.launches,
+                "paged_decode_attention": pa_kernel.launches,
+                "gf256_matmul_bitsliced": gf_kernel.launches}
+    per_step_rms = 2 * cfg.num_layers + 1
+    assert launches["paged_decode_attention"] == \
+        cfg.num_layers * MOE_NEW_TOKENS, launches
+    assert launches["rmsnorm"] == per_step_rms * (MOE_NEW_TOKENS + 1), \
+        launches
+    assert launches["gf256_matmul_bitsliced"] == 0, launches
+    assert out.shape == (SLOTS, MOE_NEW_TOKENS) and out.dtype == np.int32
+    assert ((out >= 0) & (out < cfg.vocab_size)).all()
+    st = eng.stats
+    print(f"phase 12a serve: {SLOTS} x {PROMPT}-token prompts, "
+          f"{MOE_NEW_TOKENS} new tokens each in {wall:.3f} s (capacity "
+          f"{moe.capacity(cfg, PROMPT)} per expert and sequence in the "
+          f"prefill); launches {json.dumps(launches)} = {cfg.num_layers} "
+          f"paged attention and {per_step_rms} RMSNorm per decode step, "
+          f"{per_step_rms} RMSNorm in the prefill; first tokens "
+          f"{out[0, :8].tolist()}")
+
+    # paged attention at this shape (G = 1), the final length
+    length = PROMPT + MOE_NEW_TOKENS
+    q = torch.randn((SLOTS, cfg.num_heads, cfg.head_dim), device=dev,
+                    dtype=torch.bfloat16)
+    kc, vc = kv.k_pool[0], kv.v_pool[0]
+    table = torch.tensor(kv.table, device=dev)
+    lens = torch.full((SLOTS,), length, dtype=torch.int32, device=dev)
+    B, P, ps, K, hd = kc.shape
+    pa_bytes = 2 * q.numel() * 2 + kv_bytes(cfg, SLOTS, length) \
+        // cfg.num_layers + table.numel() * 4 + lens.numel() * 4
+    pa_flops = 4 * SLOTS * cfg.num_heads * cfg.head_dim * length
+    pos = torch.arange(P * ps, device=dev)
+    mask = (pos[None, :] < lens[:, None])[:, None, None, :]
+    got = pa_kernel.paged_decode_attention_cuda(q, kc, vc, table, lens)
+    want = paged_decode_attention_ref(q, kc, vc, table, lens)
+    torch.cuda.synchronize()
+    pa_err = float((got.float() - want).abs().max())
+    torch.testing.assert_close(got.float(), want, atol=PA_TOL["bfloat16"],
+                               rtol=PA_TOL["bfloat16"])
+
+    def sdpa():
+        kf = _gather_pages(kc, table).transpose(1, 2)      # (B, K, T, hd)
+        vf = _gather_pages(vc, table).transpose(1, 2)
+        return F.scaled_dot_product_attention(q[:, :, None], kf, vf,
+                                              attn_mask=mask)
+
+    ms = event_ms(lambda: pa_kernel.paged_decode_attention_cuda(
+        q, kc, vc, table, lens), reps=50)
+    plain = event_ms(lambda: paged_decode_attention_ref(q, kc, vc, table,
+                                                        lens), reps=5)
+    lib_ms = event_ms(sdpa, reps=10)
+    b_ms, by = bound(pa_bytes, pa_flops, ops_per_s=F32_FLOPS_PER_S)
+    occ = pa_kernel._blocks_per_sm(dev, hd, 1, pa_kernel.DTYPES[q.dtype], P)
+    splits, pps = pa_kernel.split_pages(B, K, 1, P, _build.sm_count(dev),
+                                        occ)
+    pa_timing = dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=by,
+                     library_ms=lib_ms)
+    print(f"kernel paged_decode_attention {QWEN_MOE} (B={B}, H=K={K}, G=1, "
+          f"hd={hd}, {P} pages of {ps}, lens {length}, bf16; {occ} blocks "
+          f"per SM, {splits} splits of {pps} pages): {ms * 1e3:.1f} us = "
+          f"{100 * b_ms / ms:.1f}% of its bound | bound {b_ms * 1e3:.1f} us "
+          f"by {by} ({pa_bytes} bytes, {pa_flops} flops) | plain "
+          f"{plain * 1e3:.1f} us | _gather_pages + sdpa {lib_ms * 1e3:.1f} "
+          f"us | max_abs_err vs plain {pa_err:.3e} (largest |output| "
+          f"{float(want.abs().max()):.3e}) | {card}")
+    del eng, kv, kc, vc, q
+    torch.cuda.empty_cache()
+
+    # ---- the kernel path against the plain contiguous path (bf16) -----
+    torch.backends.cuda.matmul.allow_tf32 = False
+    paged_m = build_model(cfg, kv_layout="paged", page_size=PAGE)
+    plain_m = build_model(cfg, kv_layout="contiguous")
+    toks = torch.from_numpy(out).to(dev)
+    dev_prompts = torch.from_numpy(prompts).to(dev)
+    with DispatchRecorder(moe) as rec, \
+            DecodeAttentionProbe(transformer, layers) as probe_k:
+        lg_k, _ = teacher_forced(paged_m, params, dev_prompts, toks,
+                                 MOE_MAX_LEN)
+    with DecodeAttentionProbe(transformer, layers) as probe_p:
+        lg_p, _ = teacher_forced(plain_m, params, dev_prompts, toks,
+                                 PROMPT + MOE_NEW_TOKENS)
+    assert torch.isfinite(lg_k).all() and torch.isfinite(lg_p).all()
+    # the kernel path re-run outside the engine gives the engine's tokens
+    assert torch.equal(lg_k.argmax(-1).to(torch.int32).cpu(),
+                       torch.from_numpy(out))
+    nl = cfg.num_layers
+    assert len(probe_k.errs) == len(probe_p.outs) == nl * MOE_NEW_TOKENS
+    call_err = max(probe_k.errs)
+    # where the two paths part at the first decode step: each layer's
+    # attention output, as a share of the plain path's largest
+    part = [float((a - b).abs().max() / b.abs().max())
+            for a, b in zip(probe_k.outs[:nl], probe_p.outs[:nl])]
+    bf16_diff = float((lg_k - lg_p).abs().max())
+    step0 = float((lg_k[:, 0] - lg_p[:, 0]).abs().max())
+    agree = float((lg_k.argmax(-1) == lg_p.argmax(-1)).float().mean())
+    spread, gap = probe_p.scores
+    del probe_k, probe_p
+    calls = [(T, n, int(d), int(u)) for T, n, d, u in rec.calls]
+    pre = [c for c in calls if c[0] == PROMPT]
+    dec = [c for c in calls if c[0] == 1]
+    assert len(pre) == cfg.num_layers and \
+        len(dec) == cfg.num_layers * MOE_NEW_TOKENS, (len(pre), len(dec))
+    dropped = sum(c[2] for c in pre)
+    kept = sum(c[1] for c in pre) - dropped
+    assert sum(c[2] for c in dec) == 0
+    print(f"phase 12a bf16 check: the paged kernel at every one of the "
+          f"{nl * MOE_NEW_TOKENS} (step, layer) calls of the teacher-forced "
+          f"kernel path against the plain version on the same inputs: "
+          f"max_abs_err {call_err:.3e} (tol {PA_TOL['bfloat16']} abs + "
+          f"rel); the whole model against the plain contiguous path "
+          f"(decode_attention_grouped, no paged kernel), teacher-forced on "
+          f"the engine's tokens, {SLOTS} x {MOE_NEW_TOKENS} steps: largest "
+          f"logit difference {bf16_diff:.4e} (first step {step0:.4e}; "
+          f"phase 7's tol {LOGIT_TOL['bfloat16']} is not held here), argmax"
+          f" agreement {agree:.4f}, logits std {float(lg_p.std()):.4f}; at "
+          f"the first step each layer's attention output differs by "
+          f"{', '.join(f'{x:.3g}' for x in part)} of its largest value: "
+          f"without qk_norm and with wq, wk drawn at 1/sqrt({cfg.num_heads})"
+          f" (the reference's fan_in), layer 1's scores spread by "
+          f"{spread:.1f} with a median gap of {gap:.1f} between each "
+          f"query's two largest, so its softmax is nearly one-hot and a "
+          f"bf16 rounding difference from layer 0 moves it")
+    print(f"phase 12a prefill (token, expert) pairs dropped by capacity: "
+          f"{dropped} of {dropped + kept} "
+          f"({100 * dropped / (dropped + kept):.2f}%), per layer "
+          f"{[c[2] for c in pre]}")
+    del lg_k, lg_p
+
+    # ---- the MoE FFN against its dense oracle, and against itself -----
+    _, lyr = _split_layers(params)
+    lp32 = {k: v[0].float() for k, v in lyr.items()}
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    free = dataclasses.replace(cfg32, moe=dataclasses.replace(
+        m, capacity_factor=m.num_experts / m.top_k))   # capacity = S
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED)
+    x = torch.randn(MOE_DENSE_SHAPE + (cfg.d_model,), generator=g,
+                    device=dev)
+    y_moe, a_moe = moe.moe_ffn(free, lp32, x)
+    y_dense, a_dense = moe.moe_ffn_dense(free, lp32, x)
+    torch.cuda.synchronize()
+    dense_err = float((y_moe - y_dense).abs().max())
+    torch.testing.assert_close(y_moe, y_dense, atol=MOE_DENSE_TOL,
+                               rtol=MOE_DENSE_TOL)
+    assert abs(float(a_moe) - float(a_dense)) < 1e-6
+    xs = torch.randn((4, PROMPT, cfg.d_model), generator=g, device=dev)
+    runs = [moe.moe_ffn(cfg32, lp32, xs)[0] for _ in range(2)]
+    torch.cuda.synchronize()
+    same = torch.equal(runs[0], runs[1])
+    print(f"phase 12a MoE FFN (layer 0 at full width, f32): moe_ffn at "
+          f"drop-free capacity vs moe_ffn_dense on {MOE_DENSE_SHAPE} tokens"
+          f": max_abs_err {dense_err:.3e} (tol {MOE_DENSE_TOL}), aux "
+          f"{float(a_moe):.6f} vs {float(a_dense):.6f}; two runs at the "
+          f"published capacity on 4 x {PROMPT} tokens (combine by "
+          f"index_put_(accumulate=True)) bit-identical: {same}")
+    assert same
+    del lp32, x, xs, runs, y_moe, y_dense
+
+    # ---- f32 tokens at full width, 4 of 24 layers ----------------------
+    cfg4 = dataclasses.replace(cfg32, num_layers=MOE_F32_LAYERS)
+    params32 = {k: (v[:MOE_F32_LAYERS] if k.startswith("layers/") else v)
+                .float() for k, v in params.items()}
+    p32 = dev_prompts[:F32_SLOTS, :F32_PROMPT]
+    eng32 = ServeEngine(cfg4, ServeConfig(
+        batch_slots=F32_SLOTS, max_len=F32_PROMPT + 2 * PAGE,
+        page_size=PAGE), params=params32, device=dev)
+    out32 = eng32.generate(p32.cpu().numpy(), F32_STEPS)
+    del eng32
+    with DecodeAttentionProbe(transformer, layers) as probe32:
+        tok_k, lg32_k = greedy(build_model(cfg4, kv_layout="paged",
+                                           page_size=PAGE), params32, p32,
+                               F32_STEPS, F32_PROMPT + 2 * PAGE)
+    f32_call, f32_plain = max(probe32.errs), max(probe32.plain_errs)
+    tok_p, lg32_p = greedy(build_model(cfg4, kv_layout="contiguous"),
+                           params32, p32, F32_STEPS, F32_PROMPT + F32_STEPS)
+    f32_diff = float((lg32_k - lg32_p).abs().max())
+    print(f"phase 12a f32 check: {QWEN_MOE} at full width, "
+          f"{MOE_F32_LAYERS} of {cfg.num_layers} layers in f32 (reduced: "
+          f"57 GB of f32 weights do not fit beside the bf16 model), "
+          f"{F32_SLOTS} x {F32_PROMPT}-token prompts, {F32_STEPS} greedy "
+          f"steps: engine (paged kernel) tokens {out32[0].tolist()}..., "
+          f"plain contiguous path equal: {bool(torch.equal(tok_k, tok_p))};"
+          f" the paged kernel at each of its {len(probe32.errs)} calls "
+          f"against the exact (float64) answer on the same inputs: "
+          f"max_abs_err {f32_call:.3e}, the f32 plain version's "
+          f"{f32_plain:.3e} (each call held to the larger of the plain "
+          f"version's error and {PA_TOL['float32']} x its largest output);"
+          f" largest logit difference {f32_diff:.4e} (phase 7's tol "
+          f"{LOGIT_TOL['float32']} is not held here: the nearly one-hot "
+          f"softmax of the bf16 check)")
+    assert np.array_equal(out32, tok_k.cpu().numpy())
+    assert torch.equal(tok_k, tok_p), (tok_k, tok_p)
+    del params32, lg32_k, lg32_p, probe32
+
+    # ---- numbers --------------------------------------------------------
+    flops = moe_prefill_flops(cfg, SLOTS, PROMPT, kept)
+    pre_b, pre_by = bound(weight_bytes + kv_bytes(cfg, SLOTS, PROMPT),
+                          flops, ops_per_s=BF16_FLOPS_PER_S)
+    print(f"phase 12a prefill: {SLOTS} x {PROMPT} tokens in "
+          f"{st.prefill_seconds:.3f} s = "
+          f"{SLOTS * PROMPT / st.prefill_seconds:.1f} tokens/s | bound "
+          f"{pre_b:.3f} ms by {pre_by} ({flops} flops at the bf16 peak, "
+          f"{kept} routed pairs) = {SLOTS * PROMPT / (pre_b / 1e3):.1f} "
+          f"tokens/s; {100 * pre_b / 1e3 / st.prefill_seconds:.2f}% of it "
+          f"| {card}")
+    # each step reads every weight but the experts, the experts its
+    # tokens were routed to (per layer), and the valid KV
+    expert_bytes = 3 * cfg.d_model * m.d_expert * 2
+    fixed = param_bytes(params, skip=("layers/we_", "embed")) \
+        + SLOTS * cfg.d_model * 2
+    used = [sum(c[3] for c in dec[i * cfg.num_layers:
+                                  (i + 1) * cfg.num_layers])
+            for i in range(MOE_NEW_TOKENS)]
+    step_b = [bound(fixed + used[i] * expert_bytes
+                    + kv_bytes(cfg, SLOTS, PROMPT + i + 1))[0]
+              for i in range(MOE_NEW_TOKENS)]
+    secs = st.step_seconds
+    med = sorted(secs)[len(secs) // 2]
+    med_b = sorted(step_b)[len(step_b) // 2]
+    print(f"phase 12a decode: {SLOTS * MOE_NEW_TOKENS} tokens in "
+          f"{st.decode_seconds:.3f} s = "
+          f"{SLOTS * MOE_NEW_TOKENS / st.decode_seconds:.1f} tokens/s; step "
+          f"{step_times(secs)} over {len(secs)} | bytes each step reads at "
+          f"3.35 TB/s: {min(step_b):.3f}-{max(step_b):.3f} ms (weights but "
+          f"the experts {fixed} bytes, {min(used)}-{max(used)} routed "
+          f"experts of {cfg.num_layers * m.num_experts} at {expert_bytes} "
+          f"bytes, valid KV); median at {100 * med_b / (med * 1e3):.2f}% "
+          f"of it | {card}")
+    del params
+    torch.cuda.empty_cache()
+    return {"launches": launches, "paged": pa_timing, "pa_err": pa_err,
+            "dropped": dropped}
+
+
+def rwkv_prefill_flops(cfg, B: int, S: int, chunk: int = 32) -> int:
+    """Matrix-product flops of an RWKV6 prefill: per token and layer the
+    token-shift and decay LoRAs, the five d x d projections and the
+    channel mix; the chunked WKV's contractions per head (the chunk's
+    pair matrix, its product with v, the state read and update); the
+    last token's logits."""
+    d, ff, rw = cfg.d_model, cfg.d_ff, cfg.rwkv
+    H, hs = d // rw.head_size, rw.head_size
+    per_tok = 2 * (2 * 5 * d * rw.mix_lora + 5 * d * d
+                   + 2 * d * rw.decay_lora + 2 * d * ff + d * d)
+    wkv = H * 2 * (2 * chunk * hs + 2 * hs * hs)
+    return cfg.num_layers * B * S * (per_tok + wkv) \
+        + 2 * B * cfg.vocab_size * d
+
+
+def rwkv_phase(dev, work, card, cfg) -> dict:
+    """Phase 12 (b): RWKV6-3B at published widths and full depth: prefill
+    through `wkv_chunked`, greedy decode through `wkv_scan`, the
+    recurrent state snapshotted through the store and restored through
+    the RS decode after a slab is reclaimed; chunked vs scan on one
+    layer's real inputs, f32 decode vs teacher forcing."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.checkpoint.checkpointer import _leaf_paths
+    from repro_torch.core import InfiniStore, StoreConfig
+    from repro_torch.kernels.rmsnorm import kernel as rms_kernel
+    from repro_torch.kernels.rs_gf256 import kernel as gf_kernel
+    from repro_torch.models import build_model, rwkv6
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    params = rwkv6.init_params(cfg, gen)
+    n_params = sum(p.numel() for p in params.values())
+    model = build_model(cfg)                        # wkv_impl="chunked"
+    rng = np.random.default_rng(SEED + 13)
+    prompts = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (REC_BATCH, RWKV_PROMPT)).astype(np.int32)).to(dev)
+    seen = []
+    chunked = rwkv6.wkv_chunked
+
+    def capture(*args, **kw):             # the last layer's inputs stay
+        seen[:] = [args]
+        return chunked(*args, **kw)
+
+    rwkv6.wkv_chunked = capture
+    try:
+        torch.cuda.synchronize()
+        rms_kernel.launches = gf_kernel.launches = 0
+        t = time.perf_counter()
+        logits, state = model.prefill(params, {"tokens": prompts})
+        tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t
+    finally:
+        rwkv6.wkv_chunked = chunked
+    toks, secs, _ = greedy_steps(model, params, tok, state, REC_STEPS)
+    torch.cuda.synchronize()
+    rms = rms_kernel.launches
+    per_fwd = 2 * cfg.num_layers + 2
+    assert rms == per_fwd * (REC_STEPS + 1), rms
+    assert int(state["len"]) == RWKV_PROMPT
+    state_bytes = sum(t.numel() * t.element_size()
+                      for _, t in _leaf_paths(state))
+    print(f"phase 12b {RWKV6}: {n_params} params (bf16) from seed {SEED}; "
+          f"prefill {REC_BATCH} x {RWKV_PROMPT} tokens (wkv_chunked, chunk "
+          f"32) in {prefill_s:.3f} s, {REC_STEPS} greedy steps (wkv_scan); "
+          f"RMSNorm launches {rms} = {per_fwd} per forward; state "
+          f"{state_bytes} bytes; first tokens {toks[0, :8].tolist()}")
+
+    # ---- the state snapshotted through the store -----------------------
+    store = InfiniStore(StoreConfig(enable_recovery=False,
+                                    spill_dir=str(work / "spill-state")),
+                        seed=SEED)
+    ck = Checkpointer(store)
+    gf_kernel.launches = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    ck.save(0, state)
+    torch.cuda.synchronize()
+    save_s = time.perf_counter() - t
+    gf_save = gf_kernel.launches
+    assert store.flush_writeback(timeout=600.0)
+    fid = store.chunk_map["ckpt/00000000/wkv/s0|1/f0#0"]
+    store.inject_failure(fid)
+    inv0 = store.codec.cache_info()["inversions"]
+    gf_kernel.launches = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    back = ck.restore(0, like=state)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t
+    gf_restore = gf_kernel.launches
+    inv = store.codec.cache_info()["inversions"]
+    assert gf_save > 0 and gf_restore > 0 and inv > inv0, (gf_save,
+                                                           gf_restore, inv)
+    for (name, a), (_, b) in zip(_leaf_paths(state), _leaf_paths(back)):
+        assert b.device == a.device and b.dtype == a.dtype, name
+        assert torch.equal(a, b), name
+    again, _, _ = greedy_steps(model, params, tok, back, REC_STEPS)
+    assert torch.equal(again, toks), (again, toks)
+    assert store.close()
+    del store, ck, back
+    print(f"phase 12b snapshot: the post-prefill state ({state_bytes} "
+          f"bytes, {len(_leaf_paths(state))} leaves) saved through "
+          f"InfiniStore(device='cuda', RS(10+2)) in {save_s:.3f} s (GF(256) "
+          f"launches {gf_save}); slab {fid} holding chunk #0 of the wkv "
+          f"leaf reclaimed; restored through the RS decode in "
+          f"{restore_s:.3f} s (GF(256) launches {gf_restore}, inversions "
+          f"{inv0} -> {inv}) bit-identical; {REC_STEPS} greedy steps from "
+          f"it == the uninterrupted run's tokens")
+
+    # ---- chunked vs scan on the last layer's real inputs ---------------
+    # (the reference's init gives the last layer the heaviest decay)
+    r, k, v, w, u, s0 = seen[0]
+    y_c, st_c = rwkv6.wkv_chunked(r, k, v, w, u, s0)
+    y_s, st_s = rwkv6.wkv_scan(r, k, v, w, u, s0)
+    torch.cuda.synchronize()
+    wkv_err = max(float((y_c - y_s).abs().max()),
+                  float((st_c - st_s).abs().max()))
+    torch.testing.assert_close(y_c, y_s, atol=WKV_TOL, rtol=WKV_TOL)
+    torch.testing.assert_close(st_c, st_s, atol=WKV_TOL, rtol=WKV_TOL)
+    B, S, H, hs = w.shape
+    nats = float(-torch.log(w.float()).reshape(B, S // 32, 32, H, hs)
+                 .sum(2).max())
+    del seen, r, k, v, w, y_c, y_s
+    # ---- f32 decode vs teacher forcing ---------------------------------
+    params32 = {k: v.float() for k, v in params.items()}
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    B, S = RWKV_TF
+    tf_toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S + 1))
+                               .astype(np.int32)).to(dev)
+    tf_err, _ = teacher_forcing_check(build_model(cfg32, wkv_impl="scan"),
+                                      params32, tf_toks, S, 1)
+    print(f"phase 12b checks: wkv_chunked vs wkv_scan on the last layer's "
+          f"real r, k, v, w ({REC_BATCH} x {RWKV_PROMPT} tokens, "
+          f"{cfg.d_model // cfg.rwkv.head_size} heads, f32, "
+          f"decay up to {nats:.1f} nats over a chunk of 32): max_abs_err "
+          f"{wkv_err:.3e} (tol {WKV_TOL}); f32 decode of token {S + 1} vs "
+          f"teacher forcing at full width (B={B}, S={S}): {tf_err:.3e} "
+          f"(tol {TF_DECODE_TOL})")
+    assert tf_err <= TF_DECODE_TOL, tf_err
+    del params32
+
+    # ---- numbers --------------------------------------------------------
+    flops = rwkv_prefill_flops(cfg, REC_BATCH, RWKV_PROMPT)
+    wbytes = param_bytes(params)
+    pre_b, pre_by = bound(wbytes + state_bytes, flops,
+                          ops_per_s=BF16_FLOPS_PER_S)
+    tokens = REC_BATCH * RWKV_PROMPT
+    print(f"phase 12b prefill: {tokens} tokens in {prefill_s:.3f} s = "
+          f"{tokens / prefill_s:.1f} tokens/s | bound {pre_b:.3f} ms by "
+          f"{pre_by} ({flops} flops at the bf16 peak) = "
+          f"{tokens / (pre_b / 1e3):.1f} tokens/s; "
+          f"{100 * pre_b / 1e3 / prefill_s:.2f}% of it | {card}")
+    # a step reads every weight but the embedding table (its B rows),
+    # and reads and writes the state
+    step_bytes = param_bytes(params, skip=("embed",)) \
+        + REC_BATCH * cfg.d_model * 2 + 2 * state_bytes
+    s_b, _ = bound(step_bytes)
+    med = sorted(secs)[len(secs) // 2]
+    print(f"phase 12b decode: {REC_BATCH * REC_STEPS} tokens, step "
+          f"{step_times(secs)} over {len(secs)} | bytes each step reads "
+          f"and writes at 3.35 TB/s: {step_bytes} = {s_b:.3f} ms; median "
+          f"at {100 * s_b / (med * 1e3):.2f}% of it | {card}")
+    del params, state
+    torch.cuda.empty_cache()
+    return {"rmsnorm": rms, "gf": gf_save + gf_restore}
+
+
+def rgemma_prefill_flops(cfg, B: int, S: int) -> int:
+    """Matrix-product flops of a RecurrentGemma prefill: per token every
+    block's MLP, each recurrent block's projections and block-diagonal
+    gates, each attention block's projections and its local attention
+    (QK and PV over min(t + 1, window) keys); the last token's logits."""
+    from repro_torch.models import rglru
+    d, ff, H, K, hd = (cfg.d_model, cfg.d_ff, cfg.num_heads,
+                       cfg.num_kv_heads, cfg.head_dim)
+    rg = cfg.rglru
+    W, bw = rg.lru_width, rg.lru_width // cfg.num_heads
+    n_super, tail = rglru.layer_plan(cfg)
+    kinds = list(rg.block_pattern) * n_super + list(tail)
+    win = rg.attention_window
+    keys = sum(min(t + 1, win) for t in range(S))
+    total = 0
+    for kind in kinds:
+        total += B * S * 2 * 3 * d * ff
+        if kind == "recurrent":
+            total += B * S * 2 * (3 * d * W + 2 * W * bw)
+        else:
+            total += B * S * 2 * (d * H * hd + 2 * d * K * hd + H * hd * d) \
+                + B * 2 * 2 * H * hd * keys
+    return total + 2 * B * cfg.vocab_size * d
+
+
+def rgemma_phase(dev, card, cfg) -> dict:
+    """Phase 12 (c): RecurrentGemma-2B at published widths and full
+    depth: a prefill past its attention window, greedy decode over the
+    wrapped ring; the torch scan against a sequential recurrence, f32
+    decode vs teacher forcing across the wrap, RMSNorm at d = 2560."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch.kernels.rmsnorm import kernel as rms_kernel
+    from repro_torch.models import build_model, rglru
+
+    rg = cfg.rglru
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    params = rglru.init_params(cfg, gen)
+    n_params = sum(p.numel() for p in params.values())
+    assert all(v.dtype == (torch.float32 if k.endswith("a_param")
+                           else torch.bfloat16) for k, v in params.items())
+    model = build_model(cfg)
+    rng = np.random.default_rng(SEED + 14)
+    prompts = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (REC_BATCH, RGEMMA_PROMPT)).astype(np.int32)).to(
+        dev)
+    seen = []
+    scan = rglru.linear_scan
+
+    def capture(a, b):                               # the first block's
+        if not seen:
+            seen.append((a, b))
+        return scan(a, b)
+
+    rglru.linear_scan = capture
+    try:
+        torch.cuda.synchronize()
+        rms_kernel.launches = 0
+        t = time.perf_counter()
+        logits, state = model.prefill(params, {"tokens": prompts})
+        tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t
+    finally:
+        rglru.linear_scan = scan
+    toks, secs, last = greedy_steps(model, params, tok, state, REC_STEPS)
+    torch.cuda.synchronize()
+    rms = rms_kernel.launches
+    per_fwd = 2 * cfg.num_layers + 1
+    assert rms == per_fwd * (REC_STEPS + 1), rms
+    assert int(last["len"]) == RGEMMA_PROMPT + REC_STEPS
+    print(f"phase 12c {RGEMMA}: {n_params} params (bf16, a_param f32) from "
+          f"seed {SEED}; prefill {REC_BATCH} x {RGEMMA_PROMPT} tokens (past "
+          f"the {rg.attention_window}-token window, ring rolled by "
+          f"{RGEMMA_PROMPT % rg.attention_window}) in {prefill_s:.3f} s, "
+          f"{REC_STEPS} greedy steps over the ring (slots "
+          f"{RGEMMA_PROMPT % rg.attention_window}-"
+          f"{(RGEMMA_PROMPT + REC_STEPS - 1) % rg.attention_window}); "
+          f"RMSNorm launches {rms} = {per_fwd} per forward; first tokens "
+          f"{toks[0, :8].tolist()}")
+    del last
+
+    # ---- the torch scan against a sequential recurrence ----------------
+    a, b = seen[0]
+    _, h = rglru.linear_scan(a, b)
+    hh, seq = torch.zeros_like(b[:, 0]), []
+    for t in range(a.shape[1]):
+        hh = a[:, t] * hh + b[:, t]
+        seq.append(hh)
+    seq = torch.stack(seq, 1)
+    scan_err = float((h - seq).abs().max())
+    torch.testing.assert_close(h, seq, atol=SCAN_TOL, rtol=SCAN_TOL)
+    del seen, a, b, h, seq, hh
+    # ---- f32 decode vs teacher forcing across the wrap -----------------
+    params32 = {k: v.float() for k, v in params.items()}
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    B, S = RGEMMA_TF
+    tf_toks = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (B, S + RGEMMA_TF_STEPS)).astype(np.int32)).to(dev)
+    tf_err, floor = teacher_forcing_check(build_model(cfg32), params32,
+                                          tf_toks, S, RGEMMA_TF_STEPS)
+    tf_tol = max(TF_DECODE_TOL, TF_FLOOR_FACTOR * floor)
+    print(f"phase 12c checks: linear_scan (Hillis-Steele) vs the "
+          f"sequential recurrence on the first block's real a, b "
+          f"({REC_BATCH} x {RGEMMA_PROMPT} x {rg.lru_width}, f32): max_abs_err"
+          f" {scan_err:.3e} (tol {SCAN_TOL}); "
+          f"f32 decode vs teacher forcing at full width (B={B}, S={S}: the "
+          f"ring wrapped at slot {S % rg.attention_window}), "
+          f"{RGEMMA_TF_STEPS} steps: {tf_err:.3e} (tol {tf_tol:.3e}: the "
+          f"larger of {TF_DECODE_TOL} and {TF_FLOOR_FACTOR} x the forward's "
+          f"own f32 floor at those positions, {floor:.3e})")
+    assert tf_err <= tf_tol, (tf_err, floor)
+    del params32
+
+    # ---- numbers --------------------------------------------------------
+    flops = rgemma_prefill_flops(cfg, REC_BATCH, RGEMMA_PROMPT)
+    wbytes = param_bytes(params)
+    pre_b, pre_by = bound(wbytes, flops, ops_per_s=BF16_FLOPS_PER_S)
+    tokens = REC_BATCH * RGEMMA_PROMPT
+    print(f"phase 12c prefill: {tokens} tokens in {prefill_s:.3f} s = "
+          f"{tokens / prefill_s:.1f} tokens/s | bound {pre_b:.3f} ms by "
+          f"{pre_by} ({flops} flops at the bf16 peak) = "
+          f"{tokens / (pre_b / 1e3):.1f} tokens/s; "
+          f"{100 * pre_b / 1e3 / prefill_s:.2f}% of it | {card}")
+    # a step reads every weight (the tied table too, for the logits), the
+    # rings' valid rows and the recurrent states
+    win = rg.attention_window
+    n_super, tail = rglru.layer_plan(cfg)
+    n_attn = (list(rg.block_pattern) * n_super + list(tail)).count(
+        "attention")
+    ring = 2 * REC_BATCH * win * cfg.num_kv_heads * cfg.head_dim * 2 * n_attn
+    rec_state = sum(t.numel() * t.element_size() for k, blk in state.items()
+                    if k != "len" and "h" in blk for t in blk.values())
+    step_bytes = wbytes + ring + 2 * rec_state
+    s_b, _ = bound(step_bytes)
+    med = sorted(secs)[len(secs) // 2]
+    print(f"phase 12c decode: {REC_BATCH * REC_STEPS} tokens, step "
+          f"{step_times(secs)} over {len(secs)} | bytes each step reads at "
+          f"3.35 TB/s: {step_bytes} = {s_b:.3f} ms (weights, the full rings,"
+          f" recurrent state read and written); median at "
+          f"{100 * s_b / (med * 1e3):.2f}% of it | {card}")
+    del params, state
+    torch.cuda.empty_cache()
+    rms_d = rms_at(dev, [(REC_BATCH, RGEMMA_PROMPT, cfg.d_model),
+                         (REC_BATCH, RWKV_PROMPT, cfg.d_model),
+                         (REC_BATCH, 1, cfg.d_model)], card,
+                   f"d={cfg.d_model}")
+    return {"rmsnorm": rms, "rms_d2560": rms_d}
+
+
+def published_model_configs() -> dict:
+    """Phase 12's three configurations at published widths and full
+    depth, each checked against its source's numbers."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, moe, rglru
+    cfgs = {name: get_config(name) for name in (QWEN_MOE, RWKV6, RGEMMA)}
+    c, m = cfgs[QWEN_MOE], cfgs[QWEN_MOE].moe
+    assert (c.num_layers, c.d_model, c.num_heads, c.num_kv_heads,
+            c.head_dim, c.vocab_size, c.qkv_bias, c.tie_embeddings, c.dtype,
+            m.num_experts, m.top_k, m.d_expert, m.d_shared,
+            m.capacity_factor) == (24, 2048, 16, 16, 128, 151936, True,
+                                   False, "bfloat16", 60, 4, 1408, 5632,
+                                   1.25)
+    assert moe.capacity(c, PROMPT) == 172
+    c, rw = cfgs[RWKV6], cfgs[RWKV6].rwkv
+    assert (c.num_layers, c.d_model, c.d_ff, c.vocab_size, rw.head_size,
+            rw.decay_lora, rw.mix_lora, c.dtype) == (
+        32, 2560, 8960, 65536, 64, 64, 32, "bfloat16")
+    c, rg = cfgs[RGEMMA], cfgs[RGEMMA].rglru
+    assert (c.num_layers, c.d_model, c.num_heads, c.num_kv_heads,
+            c.head_dim, c.d_ff, c.vocab_size, rg.lru_width,
+            rg.attention_window, c.logit_softcap, c.scale_embed,
+            c.dtype) == (26, 2560, 10, 1, 256, 7680, 256000, 2560, 2048,
+                         30.0, True, "bfloat16")
+    assert rglru.layer_plan(c) == (8, ("recurrent", "recurrent"))
+    counts = {name: build_model(c).param_count() for name, c in cfgs.items()}
+    assert counts == {QWEN_MOE: 14_315_784_192, RWKV6: 3_099_694_080,
+                      RGEMMA: 2_682_237_440}, counts
+    return cfgs
+
+
+def models_phase(dev, work, card, cfgs=None) -> dict:
+    """Phase 12: the MoE, RWKV6 and RG-LRU families, at published widths
+    and full depth unless `cfgs` ({name: config}) says otherwise (a CPU
+    rehearsal passes reduced ones). Returns each path's kernel launches
+    and timings."""
+    import gc
+
+    import torch
+    cfgs = cfgs or published_model_configs()
+    # earlier phases' stores and engines can linger in reference cycles
+    # until the collector runs: collect them before 28.6 GB of weights
+    # are drawn
+    held = torch.cuda.memory_allocated()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"phase 12 start: device memory allocated {held} bytes, "
+          f"{torch.cuda.memory_allocated()} after gc.collect()")
+    t = time.perf_counter()
+    a = moe_serve(dev, card, cfgs[QWEN_MOE])
+    torch.cuda.empty_cache()
+    b = rwkv_phase(dev, work, card, cfgs[RWKV6])
+    torch.cuda.empty_cache()
+    c = rgemma_phase(dev, card, cfgs[RGEMMA])
+    wall = time.perf_counter() - t
+    launches = {"rmsnorm": a["launches"]["rmsnorm"] + b["rmsnorm"]
+                + c["rmsnorm"],
+                "paged_decode_attention":
+                    a["launches"]["paged_decode_attention"],
+                "gf256_matmul_bitsliced": b["gf"]}
+    print(f"phase 12 launches: {json.dumps(launches)} (rmsnorm: (a) "
+          f"{a['launches']['rmsnorm']}, (b) {b['rmsnorm']}, (c) "
+          f"{c['rmsnorm']}); wall time {wall:.3f} s")
+    return {"launches": launches, "paged": a["paged"],
+            "pa_err": a["pa_err"], "rms_d2560": c["rms_d2560"]}
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description="Drive the port on one GPU.")
@@ -2068,6 +3027,12 @@ def main(argv=None) -> int:
     work.mkdir(parents=True, exist_ok=True)
     scale_out = scale_out_phase(dev, work, card, rand_u8, single)
     shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # ---- phase 12: the MoE, RWKV6 and RG-LRU families ------------------
+    work.mkdir(parents=True, exist_ok=True)
+    models = models_phase(dev, work, card)
+    shutil.rmtree(work, ignore_errors=True)
 
     enc = timing["encode (2,10)"]
     print(json.dumps({"kernels": [{
@@ -2078,7 +3043,8 @@ def main(argv=None) -> int:
         "launches": counts["put"] + counts["get"]
         + counts["degraded_get"] + counts["replay"]
         + serving["gf_evict_launches"] + training["gf_launches"]
-        + scale_out["launches"],
+        + scale_out["launches"]
+        + models["launches"]["gf256_matmul_bitsliced"],
         "max_abs_err": max_err,
         "ms": enc["ms"],
         "plain_ms": enc["plain_ms"],
@@ -2097,10 +3063,12 @@ def main(argv=None) -> int:
         "library_ms": None,
     }] + [dict(
         name=name, route="cuda", source=source, replaces=replaces,
-        launches=serving["launches"][name] + (
+        launches=serving["launches"][name] + models["launches"][name] + (
             training["rmsnorm_launches"] if name == "rmsnorm" else 0),
         max_abs_err=max(checks[name], training["grad_err"]
-                        if name == "rmsnorm" else 0.0),
+                        if name == "rmsnorm" else 0.0,
+                        models["rms_d2560"]["max_abs_err"]
+                        if name == "rmsnorm" else models["pa_err"]),
         **{key: serving["timing"][name][key] for key in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
         for name, source, replaces in (

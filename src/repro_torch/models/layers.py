@@ -31,6 +31,19 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
     return rms_norm_op(x, scale, eps)
 
 
+def group_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               num_groups: int, eps: float = 1e-5) -> torch.Tensor:
+    """GroupNorm over the last dim (used by RWKV6's ln_x): statistics in
+    f32 with the biased variance, `* scale + bias` in f32, cast back."""
+    dtype = x.dtype
+    *lead, d = x.shape
+    xg = x.float().reshape(*lead, num_groups, d // num_groups)
+    mean = xg.mean(dim=-1, keepdim=True)
+    var = xg.var(dim=-1, keepdim=True, correction=0)
+    xg = (xg - mean) * torch.rsqrt(var + eps)
+    return (xg.reshape(*lead, d) * scale + bias).to(dtype)
+
+
 def activate(x: torch.Tensor, act: str) -> torch.Tensor:
     if act == "silu":
         return F.silu(x)

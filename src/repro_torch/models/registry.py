@@ -1,11 +1,8 @@
 """Uniform model API: `build_model(cfg)` returns a `Model` whose methods
 take and return plain dicts of tensors, so the serving layer never
-branches on family.
-
-The transformer families (dense, vlm, audio) are ported, training
-loss included. The ssm (RWKV6) and hybrid (RG-LRU) families raise
-`NotImplementedError` here, the MoE FFN when called: they come with the
-rest of slice F.
+branches on family. Every family is ported: dense, moe, vlm and audio
+(`models/transformer.py`), ssm (`models/rwkv6.py`) and hybrid
+(`models/rglru.py`), training loss included.
 """
 from __future__ import annotations
 
@@ -15,10 +12,8 @@ from typing import Any, Callable, Dict, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import transformer
+from repro_torch.models import rglru, rwkv6, transformer
 from repro_torch.models.transformer import CacheSpec
-
-SLICE_F = "not ported yet (slice F: the remaining model families)"
 
 
 @dataclass(frozen=True)
@@ -43,11 +38,34 @@ class Model:
 
 
 def build_model(cfg: ModelConfig, *, kv_layout: str = "paged",
-                page_size: int = 256, attn_impl: str = "masked") -> Model:
-    if cfg.family in ("ssm", "hybrid"):
-        raise NotImplementedError(f"{cfg.name}: the {cfg.family} family is "
-                                  f"{SLICE_F}")
-    # dense / moe / vlm / audio -> transformer (whose MoE FFN raises)
+                page_size: int = 256, attn_impl: str = "masked",
+                wkv_impl: str = "chunked") -> Model:
+    if cfg.family == "ssm":
+        return Model(
+            cfg=cfg,
+            init_params=lambda gen: rwkv6.init_params(cfg, gen),
+            abstract_params=lambda: rwkv6.abstract_params(cfg),
+            loss_fn=lambda p, b: rwkv6.loss_fn(cfg, p, b, wkv_impl=wkv_impl),
+            forward=lambda p, b: rwkv6.forward(cfg, p, b, wkv_impl=wkv_impl),
+            prefill=lambda p, b, max_len=None: rwkv6.prefill(
+                cfg, p, b, wkv_impl=wkv_impl),
+            decode_step=lambda p, b, c: rwkv6.decode_step(cfg, p, b, c),
+            init_cache=lambda bs, max_len, device="cuda": rwkv6.init_state(
+                cfg, bs, device=device),
+        )
+    if cfg.family == "hybrid":
+        return Model(
+            cfg=cfg,
+            init_params=lambda gen: rglru.init_params(cfg, gen),
+            abstract_params=lambda: rglru.abstract_params(cfg),
+            loss_fn=lambda p, b: rglru.loss_fn(cfg, p, b),
+            forward=lambda p, b: rglru.forward(cfg, p, b),
+            prefill=lambda p, b, max_len=None: rglru.prefill(cfg, p, b),
+            decode_step=lambda p, b, c: rglru.decode_step(cfg, p, b, c),
+            init_cache=lambda bs, max_len, device="cuda": rglru.init_state(
+                cfg, bs, device=device),
+        )
+    # dense / moe / vlm / audio -> transformer
 
     def spec(max_len):
         return CacheSpec(layout=kv_layout, max_len=max_len,

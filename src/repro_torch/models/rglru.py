@@ -1,0 +1,407 @@
+"""RecurrentGemma / Griffin (arXiv:2402.19427): RG-LRU recurrent blocks
+interleaved with local (sliding-window) attention, 1 attention : 2
+recurrent, on torch tensors.
+
+The JAX package's `models/rglru.py`, with the same flat parameter dict
+(`"super/<i>/<leaf>"` with a leading superlayer axis for the pattern
+unit (recurrent, recurrent, attention), `"tail/<i>/<leaf>"` for the
+`num_layers % 3` trailing blocks) and the same state layout. `a_param`
+stays f32 in a bf16 model, as in the reference.
+
+What differs is PyTorch idiom: superlayers run in a Python loop where
+the reference scans them, and the RG-LRU recurrence runs as a log-depth
+(Hillis–Steele) scan of torch ops where the reference calls
+`lax.associative_scan`: both combine the same pairs, in another
+association order, so they agree to f32 rounding. Decode writes the
+attention ring buffer at `pos % window` with `pos` a device tensor.
+
+Sub-quadratic: prefill attention touches only O(S·window) pairs
+(`local_chunked_attention`), decode keeps a ring buffer of `window` kv.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.configs.base import ModelConfig, RGLRUConfig, padded_vocab
+from repro_torch.models import layers as L
+from repro_torch.models.transformer import _dtype, _out_proj, _proj
+
+RG_C = 8.0  # Griffin's fixed `c` exponent scale
+
+
+def _cfg(cfg: ModelConfig) -> RGLRUConfig:
+    return cfg.rglru or RGLRUConfig()
+
+
+def _num_blocks(cfg):  # block-diagonal gate blocks
+    return cfg.num_heads
+
+
+# --------------------------------------------------------------------------
+# Params
+# --------------------------------------------------------------------------
+
+def _block_specs(cfg: ModelConfig, kind: str):
+    d, ff = cfg.d_model, cfg.d_ff
+    rg = _cfg(cfg)
+    W, nb = rg.lru_width, _num_blocks(cfg)
+    bw = W // nb
+    s = {
+        "ln1": ((d,), (None,)),
+        "ln2": ((d,), (None,)),
+        "w_gate": ((d, ff), ("embed", "ff")),
+        "w_up": ((d, ff), ("embed", "ff")),
+        "w_down": ((ff, d), ("ff", "embed")),
+    }
+    if kind == "recurrent":
+        s.update({
+            "wx": ((d, W), ("embed", "lru")),
+            "wg": ((d, W), ("embed", "lru")),
+            "wout": ((W, d), ("lru", "embed")),
+            "conv_w": ((rg.conv_width, W), (None, "lru")),
+            "conv_b": ((W,), ("lru",)),
+            "rg_a": ((nb, bw, bw), ("lru_blocks", None, None)),
+            "rg_a_b": ((W,), ("lru",)),
+            "rg_x": ((nb, bw, bw), ("lru_blocks", None, None)),
+            "rg_x_b": ((W,), ("lru",)),
+            "a_param": ((W,), ("lru",)),
+        })
+    else:  # attention
+        H, K, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        s.update({
+            "wq": ((d, H, hd), ("embed", "heads", None)),
+            "wk": ((d, K, hd), ("embed", "kv_heads", "head_dim")),
+            "wv": ((d, K, hd), ("embed", "kv_heads", "head_dim")),
+            "wo": ((H, hd, d), ("heads", None, "embed")),
+        })
+    return s
+
+
+def layer_plan(cfg: ModelConfig) -> Tuple[int, Tuple[str, ...]]:
+    """(num_superlayers, tail_kinds)."""
+    pat = _cfg(cfg).block_pattern
+    n_super = cfg.num_layers // len(pat)
+    tail = tuple(pat[: cfg.num_layers % len(pat)])
+    return n_super, tail
+
+
+def param_specs(cfg: ModelConfig):
+    d, V = cfg.d_model, padded_vocab(cfg.vocab_size)
+    pat = _cfg(cfg).block_pattern
+    n_super, tail = layer_plan(cfg)
+    s = {"embed": ((V, d), ("vocab", "embed")),
+         "final_norm": ((d,), (None,))}
+    if not cfg.tie_embeddings:
+        s["head"] = ((V, d), ("vocab", "embed"))
+    if n_super:
+        for bi, kind in enumerate(pat):
+            for name, (shape, axes) in _block_specs(cfg, kind).items():
+                s[f"super/{bi}/{name}"] = ((n_super,) + shape,
+                                           ("layers",) + axes)
+    for ti, kind in enumerate(tail):
+        for name, (shape, axes) in _block_specs(cfg, kind).items():
+            s[f"tail/{ti}/{name}"] = (shape, axes)
+    return s
+
+
+def init_params(cfg: ModelConfig,
+                generator: torch.Generator) -> Dict[str, torch.Tensor]:
+    """Random weights on the generator's device with the reference's
+    scheme (norms at one, biases at zero, `a_param` spread over [-3, 0]
+    and kept f32, the rest normal * 1/sqrt(fan_in) drawn in f32 then
+    cast). (`torch.Generator` and `jax.random` give different numbers;
+    tests carry the reference's weights over with
+    `convert.params_from_numpy`.)"""
+    dt = _dtype(cfg)
+    dev = generator.device
+    params = {}
+    for name, (shape, _) in sorted(param_specs(cfg).items()):
+        leaf = name.split("/")[-1]
+        if leaf in ("ln1", "ln2", "final_norm"):
+            params[name] = torch.ones(shape, dtype=dt, device=dev)
+        elif leaf in ("conv_b", "rg_a_b", "rg_x_b"):
+            params[name] = torch.zeros(shape, dtype=dt, device=dev)
+        elif leaf == "a_param":
+            # softplus(a_param) in ~(0.04, 0.6) -> per-channel decay spread
+            params[name] = torch.linspace(
+                -3.0, 0.0, math.prod(shape), dtype=torch.float32,
+                device=dev).reshape(shape)
+        else:
+            fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+            w = torch.randn(shape, generator=generator, dtype=torch.float32,
+                            device=dev)
+            params[name] = w.mul_(1.0 / math.sqrt(max(fan_in, 1))).to(dt)
+    return params
+
+
+def abstract_params(cfg: ModelConfig) -> Dict[str, torch.Tensor]:
+    """Shape-and-dtype-only parameters on the meta device (no memory);
+    `a_param` is f32 whatever the model's dtype."""
+    dt = _dtype(cfg)
+    return {k: torch.empty(shape, dtype=torch.float32
+                           if k.endswith("a_param") else dt, device="meta")
+            for k, (shape, _) in param_specs(cfg).items()}
+
+
+# --------------------------------------------------------------------------
+# RG-LRU + conv
+# --------------------------------------------------------------------------
+
+def _block_diag(u: torch.Tensor, w: torch.Tensor,
+                b: torch.Tensor) -> torch.Tensor:
+    """u: (B,S,W), w: (nb,bw,bw), b: (W,) -> (B,S,W)."""
+    B, S, W = u.shape
+    nb, bw, _ = w.shape
+    ub = u.reshape(B, S, nb, bw)
+    out = torch.einsum("bsnw,nwv->bsnv", ub, w)
+    return out.reshape(B, S, W) + b
+
+
+def causal_conv1d(u: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                  state: torch.Tensor):
+    """Depthwise causal conv. u: (B,S,W), w: (cw,W), state: (B,cw-1,W).
+    Returns (out (B,S,W), new_state)."""
+    cw = w.shape[0]
+    full = torch.cat([state.to(u.dtype), u], dim=1)
+    out = sum(full[:, i:i + u.shape[1]] * w[i] for i in range(cw))
+    new_state = full[:, -(cw - 1):] if cw > 1 else state
+    return out + b, new_state
+
+
+def linear_scan(a: torch.Tensor, b: torch.Tensor):
+    """Inclusive scan of h_t = a_t·h_{t-1} + b_t along axis 1 from h = 0:
+    returns (a_cum, b_cum), a_cum_t = a_0···a_t and b_cum_t = h_t.
+
+    Hillis–Steele: ⌈log2 S⌉ passes, pass d combining each t with t − d
+    by the reference's `combine` ((a1, b1), (a2, b2)) -> (a1·a2,
+    a2·b1 + b2), all of S at once."""
+    S = a.shape[1]
+    d = 1
+    while d < S:
+        b = torch.cat([b[:, :d], a[:, d:] * b[:, :-d] + b[:, d:]], dim=1)
+        a = torch.cat([a[:, :d], a[:, :-d] * a[:, d:]], dim=1)
+        d *= 2
+    return a, b
+
+
+def rg_lru(u: torch.Tensor, p: Dict[str, torch.Tensor], h0: torch.Tensor):
+    """u: (B,S,W); h0: (B,W) f32. Returns (h_seq (B,S,W) f32, hT)."""
+    r = torch.sigmoid(_block_diag(u, p["rg_a"], p["rg_a_b"]).float())
+    i = torch.sigmoid(_block_diag(u, p["rg_x"], p["rg_x_b"]).float())
+    log_a = -RG_C * r * F.softplus(p["a_param"].float())
+    a = torch.exp(log_a)
+    gated = i * u.float()
+    beta = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12))
+    a_cum, b_cum = linear_scan(a, beta * gated)
+    h = b_cum + a_cum * h0[:, None, :]
+    return h, h[:, -1, :]
+
+
+# --------------------------------------------------------------------------
+# Blocks
+# --------------------------------------------------------------------------
+
+def recurrent_block(cfg, p, x, st, *, decode: bool):
+    """st: {"h": (B,W) f32, "conv": (B,cw-1,W)}."""
+    u = x @ p["wx"]
+    u, conv_state = causal_conv1d(u, p["conv_w"], p["conv_b"], st["conv"])
+    h, hT = rg_lru(u, p, st["h"])
+    gate = F.gelu(x @ p["wg"], approximate="tanh")
+    y = (gate * h.to(x.dtype)) @ p["wout"]
+    return y, {"h": hT, "conv": conv_state.to(st["conv"].dtype)}
+
+
+def _to_ring(k: torch.Tensor, window: int) -> torch.Tensor:
+    """(B, S, K, hd) -> ring buffer (B, window, K, hd), slot = pos % window."""
+    S = k.shape[1]
+    if S >= window:
+        last = k[:, -window:]
+    else:
+        last = F.pad(k, (0, 0, 0, 0, window - S, 0))
+    return torch.roll(last, S % window, dims=1)
+
+
+def attention_block(cfg, p, x, st, *, decode: bool, pos=None):
+    """st: {"k": (B,window,K,hd), "v": ..., } ring buffer (decode only)."""
+    rg = _cfg(cfg)
+    B, S, d = x.shape
+    H = cfg.num_heads
+    q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
+    if decode:
+        positions = pos[None]
+        q = L.rope_for_seq(q, positions, cfg.rope_theta)
+        k = L.rope_for_seq(k, positions, cfg.rope_theta)
+        slot = (pos % rg.attention_window).reshape(1).long()
+        kc = st["k"].index_copy(1, slot, k.to(st["k"].dtype))
+        vc = st["v"].index_copy(1, slot, v.to(st["v"].dtype))
+        valid = torch.clamp(pos + 1, max=rg.attention_window)
+        out = L.decode_attention(q, L.expand_kv(kc, H), L.expand_kv(vc, H),
+                                 valid)
+        new_st = {"k": kc, "v": vc}
+    else:
+        positions = torch.arange(S, device=x.device)
+        q = L.rope_for_seq(q, positions, cfg.rope_theta)
+        k = L.rope_for_seq(k, positions, cfg.rope_theta)
+        out = L.local_chunked_attention(q, L.expand_kv(k, H),
+                                        L.expand_kv(v, H),
+                                        window=rg.attention_window)
+        # stash the last `window` kv as a ring buffer (slot = pos % window)
+        # so a subsequent decode phase can continue seamlessly
+        w = rg.attention_window
+        new_st = {"k": _to_ring(k, w).to(st["k"].dtype),
+                  "v": _to_ring(v, w).to(st["v"].dtype)}
+    return _out_proj(out.to(x.dtype), p["wo"]), new_st
+
+
+def _block(cfg, kind, p, x, st, *, decode=False, pos=None):
+    h = L.rms_norm(x, p["ln1"], cfg.rms_eps)
+    if kind == "recurrent":
+        out, st = recurrent_block(cfg, p, h, st, decode=decode)
+    else:
+        out, st = attention_block(cfg, p, h, st, decode=decode, pos=pos)
+    x = x + out
+    h = L.rms_norm(x, p["ln2"], cfg.rms_eps)
+    mlp = L.mlp_glu(h, p["w_gate"], p["w_up"], p["w_down"], cfg.act)
+    return x + mlp, st
+
+
+# --------------------------------------------------------------------------
+# State
+# --------------------------------------------------------------------------
+
+def _block_state(cfg: ModelConfig, kind: str, batch: int, lead=(), *,
+                 device):
+    rg = _cfg(cfg)
+    dt = _dtype(cfg)
+    if kind == "recurrent":
+        return {"h": torch.zeros(lead + (batch, rg.lru_width),
+                                 dtype=torch.float32, device=device),
+                "conv": torch.zeros(lead + (batch, rg.conv_width - 1,
+                                            rg.lru_width), dtype=dt,
+                                    device=device)}
+    K, hd = cfg.num_kv_heads, cfg.head_dim
+    shape = lead + (batch, rg.attention_window, K, hd)
+    return {"k": torch.zeros(shape, dtype=dt, device=device),
+            "v": torch.zeros(shape, dtype=dt, device=device)}
+
+
+def init_state(cfg: ModelConfig, batch: int, *, device="cuda"):
+    pat = _cfg(cfg).block_pattern
+    n_super, tail = layer_plan(cfg)
+    st: Dict[str, Any] = {"len": torch.zeros((), dtype=torch.int32,
+                                             device=device)}
+    if n_super:
+        for bi, kind in enumerate(pat):
+            st[f"super/{bi}"] = _block_state(cfg, kind, batch, (n_super,),
+                                             device=device)
+    for ti, kind in enumerate(tail):
+        st[f"tail/{ti}"] = _block_state(cfg, kind, batch, device=device)
+    return st
+
+
+# --------------------------------------------------------------------------
+# Forward passes
+# --------------------------------------------------------------------------
+
+def _split(params):
+    top, sup, tail = {}, {}, {}
+    for kname, v in params.items():
+        if kname.startswith("super/"):
+            _, bi, leaf = kname.split("/", 2)
+            sup.setdefault(int(bi), {})[leaf] = v
+        elif kname.startswith("tail/"):
+            _, ti, leaf = kname.split("/", 2)
+            tail.setdefault(int(ti), {})[leaf] = v
+        else:
+            top[kname] = v
+    return top, sup, tail
+
+
+def embed_tokens(cfg: ModelConfig, embed: torch.Tensor,
+                 tok: torch.Tensor) -> torch.Tensor:
+    """Embedding rows of `tok`, times sqrt(d_model) with `scale_embed`:
+    the constant rounded to the embedding's dtype first, as the
+    reference rounds it (50.5 in bf16 at d = 2560, not 50.596)."""
+    x = embed[tok.long()]
+    if cfg.scale_embed:
+        x = x * float(torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype))
+    return x
+
+
+def forward(cfg: ModelConfig, params, batch, *, state=None,
+            remat: bool = True, return_state: bool = False,
+            last_only: bool = False, decode: bool = False):
+    """Scoring/prefill (or, with `decode`, one-token) forward. With
+    `remat` and autograd recording, each superlayer runs under
+    `torch.utils.checkpoint` (non-reentrant), as the reference's
+    `jax.checkpoint(..., nothing_saveable)` over its scanned unit."""
+    pat = _cfg(cfg).block_pattern
+    n_super, tail_kinds = layer_plan(cfg)
+    top, sup, tail = _split(params)
+    tok = batch["tokens"]
+    x = embed_tokens(cfg, top["embed"], tok)
+    B = x.shape[0]
+    st = state if state is not None else init_state(cfg, B, device=x.device)
+    pos = st["len"]
+
+    def body(x, lp_by_block, s_by_block):
+        new_s = []
+        for bi, kind in enumerate(pat):
+            x, s = _block(cfg, kind, lp_by_block[bi], x, s_by_block[bi],
+                          decode=decode, pos=pos)
+            new_s.append(s)
+        return x, new_s
+
+    new_sup = [[] for _ in pat] if n_super else []
+    for i in range(n_super):
+        lp = [{k: v[i] for k, v in sup[bi].items()} for bi in range(len(pat))]
+        s = [{k: v[i] for k, v in st[f"super/{bi}"].items()}
+             for bi in range(len(pat))]
+        if remat and torch.is_grad_enabled():
+            x, s_new = checkpoint(body, x, lp, s, use_reentrant=False,
+                                  preserve_rng_state=False)
+        else:
+            x, s_new = body(x, lp, s)
+        for bi, sb in enumerate(s_new):
+            new_sup[bi].append(sb)
+    new_tail = []
+    for ti, kind in enumerate(tail_kinds):
+        x, s = _block(cfg, kind, tail[ti], x, st[f"tail/{ti}"],
+                      decode=decode, pos=pos)
+        new_tail.append(s)
+    x = L.rms_norm(x, top["final_norm"], cfg.rms_eps)
+    if last_only:
+        x = x[:, -1:]
+    w = top["embed"] if cfg.tie_embeddings else top["head"]
+    logits = L.soft_cap(x @ w.T, cfg.logit_softcap)
+    logits = L.mask_pad_logits(logits, cfg.vocab_size)
+    if return_state:
+        new_state: Dict[str, Any] = {"len": pos + tok.shape[1]}
+        for bi, blocks in enumerate(new_sup):
+            new_state[f"super/{bi}"] = {
+                k: torch.stack([b[k] for b in blocks]) for k in blocks[0]}
+        for ti, s in enumerate(new_tail):
+            new_state[f"tail/{ti}"] = s
+        return logits, new_state
+    return logits, 0.0
+
+
+def loss_fn(cfg: ModelConfig, params, batch, **kw):
+    logits, _ = forward(cfg, params, batch, **kw)
+    loss = L.softmax_cross_entropy(logits, batch["labels"])
+    return loss, {"ce": loss, "aux": 0.0}
+
+
+def prefill(cfg: ModelConfig, params, batch, **kw):
+    return forward(cfg, params, batch, return_state=True, last_only=True,
+                   **kw)
+
+
+def decode_step(cfg: ModelConfig, params, batch, state):
+    return forward(cfg, params, {"tokens": batch["token"]}, state=state,
+                   remat=False, return_state=True, decode=True)

@@ -1,5 +1,5 @@
-"""Decoder-only transformer covering the dense / vlm / audio families, on
-torch tensors.
+"""Decoder-only transformer covering the dense / moe / vlm / audio
+families, on torch tensors.
 
 The same model as the JAX package's `models/transformer.py`: the same
 flat parameter dict (`"embed"`, `"layers/wq"`, ... with a leading layer
@@ -7,7 +7,7 @@ axis on layer parameters), the same layouts and the same caches. What
 differs is PyTorch idiom: layers run in a Python loop, caches are
 updated in place, and there is no mesh (one device). Training remats
 each layer with `torch.utils.checkpoint` where the reference uses
-`jax.checkpoint`. The MoE FFN is not ported yet.
+`jax.checkpoint`. The MoE FFN is `models/moe.py`'s.
 
 Decode over a paged cache on the card runs the paged decode-attention
 kernel straight on the pool (`decode_step`); on the CPU it keeps the
@@ -26,6 +26,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ModelConfig, padded_vocab
 from repro_torch.kernels.paged_attention.ops import paged_decode_attention
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_lib
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -100,9 +101,11 @@ def init_params(cfg: ModelConfig,
                 generator: torch.Generator) -> Dict[str, torch.Tensor]:
     """Random weights on the generator's device, with the reference's
     scheme: normal * 1/sqrt(fan_in) drawn in f32 then cast, norms at one,
-    biases at zero. (`torch.Generator` and `jax.random` give different
-    numbers; tests carry the reference's weights over with
-    `convert.params_from_numpy`.)"""
+    biases at zero. A layer parameter is drawn one layer at a time, so
+    the f32 scratch is one layer's slice (an MoE model's stacked experts
+    would need tens of GB of it at once). (`torch.Generator` and
+    `jax.random` give different numbers; tests carry the reference's
+    weights over with `convert.params_from_numpy`.)"""
     dt = _dtype(cfg)
     dev = generator.device
     params = {}
@@ -114,9 +117,12 @@ def init_params(cfg: ModelConfig,
         else:
             fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
             std = 1.0 / math.sqrt(max(fan_in, 1))
-            w = torch.randn(shape, generator=generator, dtype=torch.float32,
-                            device=dev)
-            params[name] = w.mul_(std).to(dt)
+            w = torch.empty(shape, dtype=dt, device=dev)
+            for part in (w if name.startswith("layers/") else (w,)):
+                part.copy_(torch.randn(part.shape, generator=generator,
+                                       dtype=torch.float32,
+                                       device=dev).mul_(std))
+            params[name] = w
     return params
 
 
@@ -180,15 +186,18 @@ def _attn(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
 
 
 def _ffn(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor):
-    """Dense FFN. Returns (out, aux_loss)."""
-    if cfg.moe is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: the MoE FFN is not ported yet (slice F: the "
-            f"remaining model families)")
-    if cfg.mlp_glu:
-        return L.mlp_glu(x, p["w_gate"], p["w_up"], p["w_down"],
-                         cfg.act), 0.0
-    return L.mlp_classic(x, p["w_up"], p["w_down"], cfg.act), 0.0
+    """Dense or MoE FFN. Returns (out, aux_loss)."""
+    if cfg.moe is None:
+        if cfg.mlp_glu:
+            return L.mlp_glu(x, p["w_gate"], p["w_up"], p["w_down"],
+                             cfg.act), 0.0
+        return L.mlp_classic(x, p["w_up"], p["w_down"], cfg.act), 0.0
+    out, aux = moe_lib.moe_ffn(cfg, p, x)
+    if cfg.moe.num_shared_experts:
+        shared = L.mlp_glu(x, p["ws_gate"], p["ws_up"], p["ws_down"], cfg.act)
+        gate = torch.sigmoid(x.float() @ p["shared_gate"].float())[..., None]
+        out = out + (gate * shared.float()).to(out.dtype)
+    return out, aux
 
 
 def _layer(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
@@ -287,8 +296,8 @@ def forward(cfg: ModelConfig, params, batch, *, attn_impl: str = "masked",
 
 def loss_fn(cfg: ModelConfig, params, batch, *, attn_impl: str = "masked",
             remat: bool = True):
-    """Mean next-token cross entropy (plus the MoE router loss, whose FFN
-    is not ported): returns (loss, {"ce", "aux"})."""
+    """Mean next-token cross entropy plus the MoE router loss: returns
+    (loss, {"ce", "aux"})."""
     logits, aux = forward(cfg, params, batch, attn_impl=attn_impl,
                           remat=remat)
     loss = L.softmax_cross_entropy(logits, batch["labels"])

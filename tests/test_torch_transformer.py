@@ -3,8 +3,9 @@ f32, with the reference's own `init_params` weights carried over through
 `params_from_numpy`: forward logits, prefill logits and caches, and
 decode steps over both cache layouts (paged through the reference's
 gather on the CPU, contiguous), all within 1e-4; plus the reference's
-decode-vs-teacher-forcing check (tests/test_models_smoke.py) for every
-transformer family the port carries, and the registry's refusals."""
+decode-vs-teacher-forcing check (tests/test_models_smoke.py) for the
+dense, vlm and audio families (the MoE family's are in
+tests/test_torch_moe.py and tests/test_torch_models_smoke.py)."""
 import dataclasses
 
 import jax
@@ -162,27 +163,6 @@ def test_decode_matches_teacher_forcing(name):
         lg, _ = m.decode_step(params, {"token": toks[:, S:S + 1]}, cache)
     err = float((lg[:, 0] - full[:, -1]).abs().max())
     assert err < 5e-4, f"{name}: decode mismatch {err}"
-
-
-@pytest.mark.parametrize("name", [n for n in ARCH_NAMES
-                                  if get_config(n).family in ("ssm",
-                                                              "hybrid")])
-def test_unported_families_raise(name):
-    with pytest.raises(NotImplementedError, match="slice F"):
-        build_model(reduced(get_config(name)))
-
-
-def test_moe_ffn_and_loss_raise():
-    cfg = dataclasses.replace(reduced(get_config("qwen2-moe-a2.7b")),
-                              dtype="float32")
-    m = build_model(cfg)
-    params = m.init_params(torch.Generator().manual_seed(0))
-    toks = torch.zeros((1, 4), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="slice F"):
-        m.forward(params, {"tokens": toks})
-    # the loss is ported; over the MoE FFN it raises with the forward
-    with pytest.raises(NotImplementedError, match="slice F"):
-        m.loss_fn(params, {"tokens": toks, "labels": toks})
 
 
 def test_init_cache_layouts():
