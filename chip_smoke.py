@@ -5,7 +5,7 @@
 
 Builds the port's four CUDA kernels from the sources in the checkout
 (one nvcc per source, all started together; sm_90a, into
-build/repro_torch/) and drives its three paths through the user's entry
+build/repro_torch/) and drives its paths through the user's entry
 points:
 
 - the store (phases 1-5): the GF(256) kernel against its plain PyTorch
@@ -82,7 +82,29 @@ points:
   version and timed.
   Each model prints prefill tokens/s beside its matrix-product flop
   bound at 989 TFLOP/s and the decode step's median and max beside the
-  bytes a step reads at 3.35 TB/s.
+  bytes a step reads at 3.35 TB/s;
+- logical-axis sharding, the mesh and int8 gradient compression (phase
+  13): (a) `build_cell`'s cells on a 1 x 1 `DeviceMesh` over the card
+  (an NCCL world of one), bf16 at published widths and full depth, their
+  arguments materialised from the cells' meta specs and `place`d as
+  DTensors by their input shardings: Qwen1.5-0.5B's train step (8 x 1024
+  tokens, `TRAIN_MICROBATCHES`' one microbatch, 3 steps), Qwen3-1.7B's
+  prefill (16 x 2048) and its decode (16 sequences at seq_len 2112, pages
+  of 256, 64 greedy steps, 28 paged-attention and 113 RMSNorm launches a
+  step asserted), each held to the unsharded path (`make_train_step`,
+  `model.prefill`, `model.decode_step`) run twice on the same inputs:
+  losses, params and logits within the difference the two unsharded runs
+  show, decode tokens equal; the paged kernel timed at pages of 256; (b)
+  the compressed train step at pod = 2: two spawned processes on the one
+  card, a gloo world on the mesh (pod=2, data=1, model=1), each pod
+  Qwen1.5-0.5B at full size and its 4 x 1024 half of every batch, 3 steps
+  of `build_cell(..., grad_compress=True)`'s fn: params and AdamW state
+  bit-identical on both pods after every step (digests gathered), each
+  pod's error == g + e - dequantize(q, s) exactly, step 1's exchanged
+  mean within sum(s_i)/(2n) of the f32 mean of the pods' gradients, step
+  1's loss equal to `make_train_step`'s on the whole batch split as the
+  pods split it (within (a)'s margin); the step's median, the
+  all-gather's wall time and bytes beside `dcn_bytes_per_step`.
 
 Every phase asserts; any failure exits non-zero. Prints timing lines,
 one `kernels` JSON line and, last, `{"ok": true, "device": {...}}`.
@@ -2699,6 +2721,526 @@ def models_phase(dev, work, card, cfgs=None) -> dict:
             "pa_err": a["pa_err"], "rms_d2560": c["rms_d2560"]}
 
 
+# ---- slice G, the mesh and the compressed step: phase 13 -----------------
+
+CELL_STEPS = 3                   # train steps of each 13a / 13b run
+CELL_DECODE_STEPS = 64           # greedy steps of the decode cell
+POD = 2                          # pods of the compressed step (13b)
+
+
+def _sync(dev) -> None:
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _meta_like(specs, tree) -> None:
+    """Every leaf of `tree` has the shape and dtype of its meta spec."""
+    from repro_torch.distributed.sharding import tree_leaves
+    got, want = tree_leaves(tree), tree_leaves(specs)
+    assert len(got) == len(want), (len(got), len(want))
+    for s, t in zip(want, got):
+        assert s.device.type == "meta", s.device
+        assert (tuple(s.shape), s.dtype) == (tuple(t.shape), t.dtype), \
+            (tuple(s.shape), s.dtype, tuple(t.shape), t.dtype)
+
+
+def _max_diff(a, b) -> float:
+    """Largest elementwise |a - b| over two trees of tensors, in f32."""
+    from repro_torch.distributed.sharding import tree_leaves
+    return max(float((x.float() - y.float()).abs().max())
+               for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+def cells_phase(dev, card: str, cfg15, cfg3) -> dict:
+    """Phase 13a: `build_cell`'s train (`cfg15`), prefill and decode
+    (`cfg3`) cells on a 1 x 1 `DeviceMesh` over `dev`, their arguments
+    materialised from the cells' meta specs and `place`d by their input
+    shardings, each held to the unsharded path run twice on the same
+    inputs. Returns the kernels' launches in the cells, the margins the
+    unsharded runs showed and the paged kernel's timing at pages of 256,
+    and the reference loss of 13b's first step."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    import torch.nn.functional as F
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.distributed.sharding import local, place, tree_leaves
+    from repro_torch.kernels.paged_attention import kernel as pa_kernel
+    from repro_torch.kernels.paged_attention.ref import \
+        paged_decode_attention_ref
+    from repro_torch.kernels.rmsnorm import kernel as rms_kernel
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.specs import num_microbatches
+    from repro_torch.launch.steps import build_cell, make_train_step
+    from repro_torch.models.transformer import _gather_pages
+    from repro_torch.optim import adamw
+
+    mesh = make_test_mesh(1, 1, device=dev.type)
+    on_card = dev.type == "cuda"
+    print(f"phase 13a mesh: {mesh!r} as {mesh.device_mesh} over a "
+          f"{dist.get_backend()} world of {dist.get_world_size()}")
+
+    # ---- train: Qwen1.5-0.5B, 8 x 1024 -------------------------------
+    shape = ShapeConfig("cell_train", seq_len=TRAIN_SEQ,
+                        global_batch=TRAIN_BATCH, kind="train")
+    cell = build_cell(cfg15, shape, mesh)
+    model = cell["model"]
+    ap, aopt, bspec = cell["args"]
+    n = bspec["tokens"].shape[0]
+    assert n == num_microbatches(cfg15, shape), n
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = model.init_params(gen)
+    opt = adamw.adamw_init(params)
+    pipe = TokenPipeline(cfg15, shape, num_microbatches=n, seed=0)
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in next(pipe).items()}
+               for _ in range(CELL_STEPS)]
+    _meta_like((ap, aopt, bspec), (params, opt, batches[0]))
+    _sync(dev)
+
+    def unsharded():
+        step = make_train_step(model, adamw.AdamWConfig())
+        p, o, losses, seconds = params, opt, [], []
+        for b in batches:
+            _sync(dev)
+            t = time.perf_counter()
+            p, o, m = step(p, o, b)
+            losses.append(float(m["loss"]))
+            seconds.append(time.perf_counter() - t)
+        return p, losses, seconds
+
+    p_a, loss_a, plain_s = unsharded()
+    p_b, loss_b, _ = unsharded()
+    in_sh = cell["in_shardings"]
+    p_d, o_d = place(params, in_sh[0]), place(opt, in_sh[1])
+    rms_kernel.launches = 0
+    loss_c, step_s = [], []
+    for b in batches:
+        _sync(dev)
+        t = time.perf_counter()
+        p_d, o_d, m = cell["fn"](p_d, o_d, place(b, in_sh[2]))
+        loss_c.append(float(local(m["loss"])))
+        step_s.append(time.perf_counter() - t)
+    rms_train = rms_kernel.launches
+    per_step = n * (4 * cfg15.num_layers + 1)
+    assert rms_train == (CELL_STEPS * per_step if on_card else 0), rms_train
+    assert type(p_d["embed"]).__name__ == "DTensor"
+    p_c = local(p_d)
+    del o_d
+    loss_margin = max(abs(x - y) for x, y in zip(loss_a, loss_b))
+    param_margin = _max_diff(p_a, p_b)
+    loss_diff = max(abs(x - y) for x, y in zip(loss_c, loss_a))
+    param_diff = _max_diff(p_c, p_a)
+    print(f"phase 13a train cell: {cfg15.name} at published widths and "
+          f"depth, {TRAIN_BATCH} x {TRAIN_SEQ} tokens a step in {n} "
+          f"microbatch(es) (specs.TRAIN_MICROBATCHES), {CELL_STEPS} steps of "
+          f"build_cell's fn over DTensors: losses {loss_c}; unsharded "
+          f"make_train_step twice: {loss_a} / {loss_b}; run-to-run "
+          f"difference of the unsharded path: losses {loss_margin:.6e}, "
+          f"params {param_margin:.6e}; cell vs unsharded: losses "
+          f"{loss_diff:.6e}, params {param_diff:.6e}; RMSNorm launches "
+          f"{rms_train} ({per_step} per step); step wall times "
+          f"{step_times(step_s)} (unsharded {step_times(plain_s)}) | {card}")
+    assert loss_diff <= loss_margin and param_diff <= param_margin, \
+        (loss_diff, loss_margin, param_diff, param_margin)
+    # 13b's first step: the whole step-0 batch split as the pods split it
+    halves = TokenPipeline(cfg15, shape, num_microbatches=POD, seed=0)
+    b2 = {k: torch.from_numpy(v).to(dev) for k, v in next(halves).items()}
+    assert torch.equal(b2["tokens"].reshape(batches[0]["tokens"].shape),
+                       batches[0]["tokens"])
+    _, _, m = make_train_step(model, adamw.AdamWConfig())(params, opt, b2)
+    pod_loss_ref = float(m["loss"])
+    del params, opt, p_a, p_b, p_c, p_d, batches, b2, m, cell
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # ---- prefill: Qwen3-1.7B, 16 x 2048 ------------------------------
+    rng = np.random.default_rng(SEED)
+    prompts = torch.from_numpy(rng.integers(0, cfg3.vocab_size,
+                                            (SLOTS, PROMPT)).astype(
+        np.int32)).to(dev)
+    shape = ShapeConfig("cell_prefill", seq_len=PROMPT, global_batch=SLOTS,
+                        kind="prefill")
+    cell = build_cell(cfg3, shape, mesh)
+    model = cell["model"]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    params = model.init_params(gen)
+    _meta_like(cell["args"], (params, {"tokens": prompts}))
+    _sync(dev)
+    t = time.perf_counter()
+    lg_a, cache_a = model.prefill(params, {"tokens": prompts},
+                                  max_len=PROMPT)
+    _sync(dev)
+    plain_prefill_s = time.perf_counter() - t
+    lg_b, _ = model.prefill(params, {"tokens": prompts}, max_len=PROMPT)
+    _sync(dev)
+    rms_kernel.launches = 0
+    t = time.perf_counter()
+    lg_c, cache_c = cell["fn"](*place((params, {"tokens": prompts}),
+                                      cell["in_shardings"]))
+    _sync(dev)
+    prefill_s = time.perf_counter() - t
+    rms_prefill = rms_kernel.launches
+    per_fwd = 4 * cfg3.num_layers + 1
+    assert rms_prefill == (per_fwd if on_card else 0), rms_prefill
+    lg_c, cache_c = local(lg_c), local(cache_c)
+    pre_margin = float((lg_a.float() - lg_b.float()).abs().max())
+    pre_diff = float((lg_c.float() - lg_a.float()).abs().max())
+    cache_diff = _max_diff(cache_c, cache_a)
+    assert torch.isfinite(lg_c.float()).all()
+    print(f"phase 13a prefill cell: {cfg3.name}, {SLOTS} x {PROMPT} tokens "
+          f"in {prefill_s:.3f} s through build_cell's fn (unsharded "
+          f"{plain_prefill_s:.3f} s), paged cache of "
+          f"{cache_c['k'].shape[2]} pages of {cache_c['k'].shape[3]}; "
+          f"last-token logits vs unsharded prefill {pre_diff:.6e} (two "
+          f"unsharded runs {pre_margin:.6e}), cache {cache_diff:.6e}; "
+          f"RMSNorm launches {rms_prefill} | {card}")
+    assert pre_diff <= pre_margin and cache_diff <= pre_margin, \
+        (pre_diff, cache_diff, pre_margin)
+    del lg_a, lg_b, lg_c, cache_a, cache_c
+
+    # ---- decode: 16 sequences at seq_len 2112, 64 greedy steps -------
+    seq = PROMPT + CELL_DECODE_STEPS
+    shape = ShapeConfig("cell_decode", seq_len=seq, global_batch=SLOTS,
+                        kind="decode")
+    cell = build_cell(cfg3, shape, mesh)
+    model = cell["model"]
+    lg, cache = model.prefill(params, {"tokens": prompts}, max_len=seq)
+    tok0 = lg[:, -1].argmax(-1).to(torch.int32)[:, None]
+    _meta_like(cell["args"], (params, {"token": tok0}, cache))
+    P, ps = cache["k"].shape[2:4]
+    assert ps == min(256, seq) and P * ps >= seq, (P, ps)  # build_model's
+    plain_cache = {k: v.clone() for k, v in cache.items()}
+    in_sh = cell["in_shardings"]
+    p_d = place(params, in_sh[0])
+    c_d = place(cache, in_sh[2])
+    tok = tok0
+    toks_c, dec_s = [], []
+    _sync(dev)
+    rms_kernel.launches = pa_kernel.launches = 0
+    for _ in range(CELL_DECODE_STEPS):
+        t = time.perf_counter()
+        tok_d, c_d = cell["fn"](p_d, place({"token": tok}, in_sh[1]), c_d)
+        tok = local(tok_d)
+        toks_c.append(tok[:, 0].cpu())
+        dec_s.append(time.perf_counter() - t)
+    launches = {"rmsnorm": rms_kernel.launches,
+                "paged_decode_attention": pa_kernel.launches}
+    want = {"rmsnorm": per_fwd * CELL_DECODE_STEPS,
+            "paged_decode_attention": cfg3.num_layers * CELL_DECODE_STEPS}
+    assert launches == (want if on_card else {k: 0 for k in want}), launches
+    tok = tok0
+    toks_p, plain_dec_s = [], []
+    cache = plain_cache
+    for _ in range(CELL_DECODE_STEPS):
+        t = time.perf_counter()
+        lg, cache = model.decode_step(params, {"token": tok}, cache)
+        tok = lg.argmax(-1).to(torch.int32)
+        toks_p.append(tok[:, 0].cpu())
+        plain_dec_s.append(time.perf_counter() - t)
+    toks_c, toks_p = torch.stack(toks_c, 1), torch.stack(toks_p, 1)
+    print(f"phase 13a decode cell: {SLOTS} sequences at seq_len {seq} "
+          f"({P} pages of {ps}), {CELL_DECODE_STEPS} greedy steps of "
+          f"build_cell's fn: tokens == unsharded decode_step's: "
+          f"{bool(torch.equal(toks_c, toks_p))} (first {toks_c[0, :8].tolist()}"
+          f"); step {step_times(dec_s)} (unsharded decode_step "
+          f"{step_times(plain_dec_s)}); launches {json.dumps(launches)} = "
+          f"{cfg3.num_layers} paged attention and {per_fwd} RMSNorm per "
+          f"step | {card}")
+    assert torch.equal(toks_c, toks_p)
+    # the cell's DTensor edge alone (host work, no device op): what a
+    # step of fn adds around decode_step, `place` of its token and its
+    # results and `local` of its arguments and its token
+    edge_s = []
+    for _ in range(CELL_DECODE_STEPS):
+        t = time.perf_counter()
+        _, _, c_l = local((p_d, place({"token": tok}, in_sh[1]), c_d))
+        local(place((tok, c_l), cell["out_shardings"])[0])
+        edge_s.append(time.perf_counter() - t)
+    print(f"phase 13a decode cell's DTensor edge per step "
+          f"({len(tree_leaves((p_d, tok, c_d)))} argument and "
+          f"{len(tree_leaves((tok, c_d)))} result leaves): "
+          f"{step_times(edge_s)} | {card}")
+
+    timing = None
+    if on_card:
+        q = torch.randn((SLOTS, cfg3.num_heads, cfg3.head_dim), device=dev,
+                        dtype=torch.bfloat16)
+        kc, vc = local(c_d)["k"][0], local(c_d)["v"][0]
+        table = local(c_d)["block_table"]
+        lens = torch.full((SLOTS,), seq, dtype=torch.int32, device=dev)
+        got = pa_kernel.paged_decode_attention_cuda(q, kc, vc, table, lens)
+        want_o = paged_decode_attention_ref(q, kc, vc, table, lens)
+        err = float((got.float() - want_o).abs().max())
+        assert err <= PA_TOL["bfloat16"], err
+        pa_bytes = 2 * q.numel() * 2 + kv_bytes(cfg3, SLOTS, seq) \
+            // cfg3.num_layers + table.numel() * 4 + lens.numel() * 4
+        pa_flops = 4 * SLOTS * cfg3.num_heads * cfg3.head_dim * seq
+        mask = (torch.arange(P * ps, device=dev)[None, :]
+                < lens[:, None])[:, None, None, :]
+
+        def sdpa():
+            kf = _gather_pages(kc, table).transpose(1, 2)
+            vf = _gather_pages(vc, table).transpose(1, 2)
+            return F.scaled_dot_product_attention(
+                q[:, :, None], kf, vf, attn_mask=mask, enable_gqa=True)
+
+        ms = event_ms(lambda: pa_kernel.paged_decode_attention_cuda(
+            q, kc, vc, table, lens), reps=50)
+        plain = event_ms(lambda: paged_decode_attention_ref(
+            q, kc, vc, table, lens), reps=5)
+        lib_ms = event_ms(sdpa, reps=10)
+        b_ms, by = bound(pa_bytes, pa_flops, ops_per_s=F32_FLOPS_PER_S)
+        timing = dict(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=by,
+                      library_ms=lib_ms, max_abs_err=err)
+        print(f"kernel paged_decode_attention at pages of {ps} (B={SLOTS}, "
+              f"H={cfg3.num_heads}, K={cfg3.num_kv_heads}, hd="
+              f"{cfg3.head_dim}, {P} pages, lens {seq}, bf16): "
+              f"{ms * 1e3:.1f} us = {100 * b_ms / ms:.1f}% of its bound | "
+              f"bound {b_ms * 1e3:.1f} us by {by} ({pa_bytes} bytes) | "
+              f"plain {plain * 1e3:.1f} us | _gather_pages + sdpa "
+              f"{lib_ms * 1e3:.1f} us | max_abs_err vs plain {err:.3e} | "
+              f"{card}")
+    del params, cache, plain_cache, p_d, c_d, cell, lg
+    dist.destroy_process_group()
+    return {"rmsnorm": rms_train + rms_prefill + launches["rmsnorm"],
+            "paged_decode_attention": launches["paged_decode_attention"],
+            "loss_margin": loss_margin, "pod_loss_ref": pod_loss_ref,
+            "paged_256": timing}
+
+
+def _digest(t) -> tuple:
+    """Two sums over a tensor's bytes (as 16- or 32-bit words, the second
+    weighted by position): equal tensors give equal digests, and a
+    change of any word changes the first."""
+    import torch
+    words = t.detach().contiguous().reshape(-1)
+    words = words.view(torch.int16 if t.element_size() == 2
+                       else torch.int32).to(torch.int64)
+    pos = torch.arange(words.numel(), device=words.device) % 65521 + 1
+    return int(words.sum()), int((words * pos).sum())
+
+
+def pod_worker(rank: int, world: int, init_file: str, device: str,
+               results, steps: int, cfg, seq_len: int, batch: int) -> None:
+    """One pod of phase 13b: `cfg` (Qwen1.5-0.5B at full width and
+    depth), this pod's part of each `batch` x `seq_len` batch, `steps`
+    steps of
+    `build_cell(..., grad_compress=True)`'s fn on the mesh (pod=world,
+    data=1, model=1) over a gloo world; puts its measurements on
+    `results`. Every check that needs both pods is made here on
+    gathered digests and tensors; a failed one raises and the process
+    exits non-zero."""
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                            rank=rank, world_size=world,
+                            timeout=timedelta(seconds=600))
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.distributed.sharding import local, place, tree_leaves
+    from repro_torch.kernels.rmsnorm import kernel as rms_kernel
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.optim import adamw, compression
+
+    mesh = make_test_mesh(1, 1, pod=world, device=device)
+    group = mesh.group("pod")
+    shape = ShapeConfig("cell_pod", seq_len=seq_len, global_batch=batch,
+                        kind="train")
+    cell = build_cell(cfg, shape, mesh, grad_compress=True)
+    model = cell["model"]
+    n = cell["args"][2]["tokens"].shape[0]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = model.init_params(gen)
+    opt = adamw.adamw_init(params)
+    opt["err"] = {k: torch.zeros(p.shape, dtype=torch.float32, device=dev)
+                  for k, p in params.items()}
+    _meta_like(cell["args"][:2], (params, opt))
+    pipe = TokenPipeline(cfg, shape, num_microbatches=n, seed=0)
+
+    # record each exchange's inputs and outputs, and time its gathers
+    seen = {}
+    psum = compression.psum_compressed
+    gather = dist.all_gather
+
+    def recording_psum(grads, grp, errors):
+        mean, new_err = psum(grads, grp, errors)
+        seen.update(g=grads, e=errors, mean=mean, new_err=new_err)
+        return mean, new_err
+
+    def timed_gather(out, t, group=None):
+        _sync(dev)
+        t0 = time.perf_counter()
+        work = gather(out, t, group=group)
+        _sync(dev)
+        seen["gather_s"] = seen.get("gather_s", 0.0) \
+            + time.perf_counter() - t0
+        seen["gathered"] = seen.get("gathered", 0) \
+            + sum(o.numel() * o.element_size() for o in out)
+        return work
+
+    compression.psum_compressed = recording_psum
+    dist.all_gather = timed_gather
+    in_sh = cell["in_shardings"]
+    p_d, o_d = place(params, in_sh[0]), place(opt, in_sh[1])
+    del params, opt
+    out = {"rank": rank, "losses": [], "step_s": [], "gather_s": [],
+           "gathered": [], "err_leaves_differing": []}
+    rms_kernel.launches = 0
+    try:
+        for step in range(steps):
+            batch = {k: torch.from_numpy(v).to(dev)
+                     for k, v in next(pipe).items()}
+            seen.clear()
+            _sync(dev)
+            t = time.perf_counter()
+            p_d, o_d, m = cell["fn"](p_d, o_d, place(batch, in_sh[2]))
+            loss = float(local(m["loss"]))
+            out["step_s"].append(time.perf_counter() - t)
+            out["losses"].append(loss)
+            out["gather_s"].append(seen["gather_s"])
+            out["gathered"].append(seen["gathered"])
+            launches = rms_kernel.launches
+            # (iii) this pod's new error is its g + e minus what it sent
+            for k in sorted(seen["g"]):
+                g = seen["g"][k].float() + seen["e"][k]
+                q, s = compression.quantize_int8(g)
+                assert torch.equal(seen["new_err"][k],
+                                   g - compression.dequantize(q, s)), k
+            if step == 0:
+                # (ii) the exchanged mean against the f32 mean of the two
+                # pods' gradients (an all-reduce for the check only)
+                worst = 0.0
+                for k in sorted(seen["g"]):
+                    ref = seen["g"][k].float().clone()
+                    dist.all_reduce(ref, group=group)
+                    ref = ref / world
+                    _, s = compression.quantize_int8(seen["g"][k].float())
+                    scales = [torch.empty_like(s.reshape(1))
+                              for _ in range(world)]
+                    gather(scales, s.reshape(1), group=group)
+                    lim = float(torch.cat(scales).sum()) / (2 * world)
+                    # plus the f32 rounding of the two sums
+                    lim += 2.0 ** -21 * float(ref.abs().max())
+                    diff = float((seen["mean"][k] - ref).abs().max())
+                    assert diff <= lim, (k, diff, lim)
+                    worst = max(worst, diff / lim)
+                out["mean_vs_bound"] = worst
+            # (i) params and the AdamW state bit-identical on both pods;
+            # `err` is each pod's own residual
+            dg = {}
+            for name, tree in (("params", local(p_d)),
+                               ("opt", {k: v for k, v in local(o_d).items()
+                                        if k != "err"}),
+                               ("err", local(o_d)["err"])):
+                dg[name] = [_digest(t) for t in tree_leaves(tree)]
+            every = [None] * world
+            dist.all_gather_object(every, dg, group=group)
+            assert all(d["params"] == every[0]["params"]
+                       and d["opt"] == every[0]["opt"] for d in every), step
+            out["err_leaves_differing"].append(sum(
+                a != b for a, b in zip(every[0]["err"], every[1]["err"])))
+            del batch
+        out["rmsnorm"] = launches
+    finally:
+        compression.psum_compressed = psum
+        dist.all_gather = gather
+    out["dcn_int8"] = compression.dcn_bytes_per_step(local(p_d),
+                                                     compressed=True)
+    out["dcn_f32"] = compression.dcn_bytes_per_step(local(p_d),
+                                                    compressed=False)
+    out["n_params"] = sum(t.numel() for t in tree_leaves(local(p_d)))
+    out["microbatches"] = n
+    results.put(out)
+    dist.destroy_process_group()
+
+
+def pod_phase(dev, card: str, work: Path, cfg15, ref: dict) -> dict:
+    """Phase 13b: the compressed train step at pod = 2, two processes on
+    the one device (spawned), each one pod. Returns the rank results."""
+    import queue
+
+    import torch.multiprocessing as mp
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    init_file = work / "pods.init"
+    init_file.unlink(missing_ok=True)
+    t = time.perf_counter()
+    procs = [ctx.Process(target=pod_worker,
+                         args=(r, POD, str(init_file), dev.type, results,
+                               CELL_STEPS, cfg15, TRAIN_SEQ, TRAIN_BATCH))
+             for r in range(POD)]
+    for p in procs:
+        p.start()
+    got = []
+    try:
+        while len(got) < POD:
+            try:
+                got.append(results.get(timeout=5))
+            except queue.Empty:
+                dead = [p.exitcode for p in procs
+                        if p.exitcode not in (None, 0)]
+                assert not dead, f"a pod process failed: exit codes {dead}"
+                assert time.perf_counter() - t < 900, "pods timed out"
+        for p in procs:
+            p.join(timeout=120)
+        assert [p.exitcode for p in procs] == [0] * POD, \
+            [p.exitcode for p in procs]
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout=30)
+    wall = time.perf_counter() - t
+    got.sort(key=lambda r: r["rank"])
+    r0 = got[0]
+    assert all(r["losses"] == r0["losses"] for r in got), \
+        [r["losses"] for r in got]
+    loss_diff = abs(r0["losses"][0] - ref["pod_loss_ref"])
+    assert loss_diff <= ref["loss_margin"], (loss_diff, ref)
+    per_step = r0["microbatches"] * (4 * cfg15.num_layers + 1)
+    want = CELL_STEPS * per_step if dev.type == "cuda" else 0
+    assert all(r["rmsnorm"] == want for r in got), \
+        [r["rmsnorm"] for r in got]
+    steps = sorted(r0["step_s"])
+    gathers = sorted(r0["gather_s"])
+    print(f"phase 13b compressed train step: {POD} pod processes on one "
+          f"device (spawned; gloo pod group), {cfg15.name} at published "
+          f"widths and depth ({r0['n_params']} params), each pod "
+          f"{TRAIN_BATCH // POD} x {TRAIN_SEQ} of every {TRAIN_BATCH} x "
+          f"{TRAIN_SEQ} batch, {CELL_STEPS} steps of build_cell(..., "
+          f"grad_compress=True)'s fn in {wall:.3f} s (spawn included): "
+          f"losses {r0['losses']} equal on both pods; params and AdamW "
+          f"state bit-identical on both pods after every step (digests "
+          f"gathered), err per pod (leaves differing "
+          f"{r0['err_leaves_differing']} of 14) and == g + e - "
+          f"dequantize(q, s) exactly on every step; step 1's exchanged "
+          f"mean within {r0['mean_vs_bound']:.4f} of its bound "
+          f"sum(s_i)/(2n); step 1's loss vs make_train_step's on the "
+          f"whole batch {loss_diff:.6e} (margin {ref['loss_margin']:.6e}); "
+          f"RMSNorm launches {[r['rmsnorm'] for r in got]} | {card}")
+    print(f"compressed step: median {steps[len(steps) // 2] * 1e3:.3f} ms "
+          f"(steps {[round(s * 1e3, 3) for s in r0['step_s']]} ms); "
+          f"all-gather wall time per step median "
+          f"{gathers[len(gathers) // 2] * 1e3:.3f} ms "
+          f"({[round(s * 1e3, 3) for s in r0['gather_s']]}); "
+          f"dcn_bytes_per_step int8 {r0['dcn_int8']} against f32 "
+          f"{r0['dcn_f32']} ({r0['dcn_f32'] / r0['dcn_int8']:.3f}x); "
+          f"gathered bytes seen per step and rank {r0['gathered']} "
+          f"({POD} x the int8 payloads and scales) | {card}")
+    return {"rmsnorm": sum(r["rmsnorm"] for r in got), "ranks": got}
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description="Drive the port on one GPU.")
@@ -3033,6 +3575,18 @@ def main(argv=None) -> int:
     work.mkdir(parents=True, exist_ok=True)
     models = models_phase(dev, work, card)
     shutil.rmtree(work, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # ---- phase 13: build_cell on a mesh, the compressed step ----------
+    t = time.perf_counter()
+    cells = cells_phase(dev, card, cfg15, get_config(QWEN3))
+    torch.cuda.empty_cache()
+    t_cells = time.perf_counter() - t
+    work.mkdir(parents=True, exist_ok=True)
+    pods = pod_phase(dev, card, work, cfg15, cells)
+    shutil.rmtree(work, ignore_errors=True)
+    print(f"phase 13 wall time {time.perf_counter() - t:.3f} s (13a "
+          f"{t_cells:.3f} s)")
 
     enc = timing["encode (2,10)"]
     print(json.dumps({"kernels": [{
@@ -3063,12 +3617,15 @@ def main(argv=None) -> int:
         "library_ms": None,
     }] + [dict(
         name=name, route="cuda", source=source, replaces=replaces,
-        launches=serving["launches"][name] + models["launches"][name] + (
-            training["rmsnorm_launches"] if name == "rmsnorm" else 0),
+        launches=serving["launches"][name] + models["launches"][name]
+        + cells[name] + (training["rmsnorm_launches"] + pods["rmsnorm"]
+                         if name == "rmsnorm" else 0),
         max_abs_err=max(checks[name], training["grad_err"]
                         if name == "rmsnorm" else 0.0,
                         models["rms_d2560"]["max_abs_err"]
-                        if name == "rmsnorm" else models["pa_err"]),
+                        if name == "rmsnorm" else max(
+                            models["pa_err"],
+                            cells["paged_256"]["max_abs_err"])),
         **{key: serving["timing"][name][key] for key in (
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
         for name, source, replaces in (

@@ -1,0 +1,343 @@
+"""Logical-axis sharding rules (t5x-style), specialized per architecture.
+
+The JAX package's `distributed/sharding.py` on torch. Model code
+annotates every param/cache leaf with logical axis names ("embed",
+"heads", "vocab", ...). `make_rules(cfg, mesh)` maps those to mesh
+axes, rule for rule as the reference:
+
+  * embed        -> data   (FSDP/ZeRO: params, grads, optimizer state)
+  * vocab/ff/heads/lru -> model  (tensor parallel)
+  * kv_heads     -> model only when num_kv_heads % tp == 0, else the kv
+                    heads are replicated and head_dim is sharded instead
+                    (or, with flash_decode, the KV sequence)
+  * experts      -> model for "expert" sharding (EP), expert_ff for "ffn"
+  * batch        -> (pod, data) on the multi-pod mesh
+
+A `PartitionSpec` has one entry per tensor dim (None, a mesh axis name,
+or a tuple of names); `NamedSharding(mesh, spec).placements` turns it
+into DTensor placements, one per mesh dim. `place` builds DTensors from
+whole tensors by these shardings, and `local` takes their local tensors
+back; the port executes on meshes whose sharded axes are this process's
+own (size 1, or a per-axis region such as the compressed step's pod).
+Trees are the port's: nested dicts (and tuples) whose leaves are
+tensors, or logical-axis tuples.
+"""
+from __future__ import annotations
+
+import contextlib
+from typing import Any, Callable, Dict, Iterator, Optional, Tuple, Union
+
+from repro_torch.configs.base import ModelConfig
+
+Axis = Union[None, str, Tuple[str, ...]]
+
+
+class PartitionSpec(tuple):
+    """One entry per tensor dim: None (replicated), a mesh axis name, or
+    a tuple of names (the dim split over those axes, the first major).
+    As in JAX, a one-name tuple is kept as the name and an empty one as
+    None. Equal to a tuple of the same entries."""
+
+    def __new__(cls, *parts: Axis):
+        def norm(p):
+            if isinstance(p, (tuple, list)):
+                p = tuple(p)
+                return None if not p else p[0] if len(p) == 1 else p
+            return p
+        return super().__new__(cls, (norm(p) for p in parts))
+
+    def __repr__(self) -> str:
+        return f"PartitionSpec{tuple.__repr__(self)}"
+
+
+def _names(entry: Axis) -> Tuple[str, ...]:
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+class NamedSharding:
+    """A `PartitionSpec` on a mesh (anything with `shape` and
+    `axis_names`)."""
+
+    def __init__(self, mesh, spec: PartitionSpec):
+        self.mesh = mesh
+        self.spec = PartitionSpec(*spec)
+
+    def __repr__(self) -> str:
+        return f"NamedSharding({self.mesh!r}, {self.spec!r})"
+
+    @property
+    def placements(self):
+        """One DTensor placement per mesh dim (see `_placements`)."""
+        return _placements(self.spec, self.mesh.axis_names)
+
+
+def _placements(spec: PartitionSpec, axis_names: Tuple[str, ...]):
+    """One DTensor placement per mesh dim, in mesh order: `Shard(i)`
+    where the dim's name appears in entry i of `spec`, else
+    `Replicate()`. Raises where a name is not a mesh axis, where a mesh
+    axis appears twice, or where a tuple entry lists axes out of mesh
+    order (a DTensor splits a dim over its mesh dims major-first)."""
+    from torch.distributed.tensor import Replicate, Shard
+    order = {name: i for i, name in enumerate(axis_names)}
+    where: Dict[str, int] = {}
+    for dim, entry in enumerate(spec):
+        names = _names(entry)
+        for name in names:
+            if name not in order:
+                raise ValueError(f"{spec}: axis {name!r} is not in "
+                                 f"mesh {tuple(axis_names)}")
+            if name in where:
+                raise ValueError(f"{spec}: mesh axis {name!r} "
+                                 f"shards dims {where[name]} and {dim}")
+            where[name] = dim
+        if [order[n] for n in names] != sorted(order[n] for n in names):
+            raise ValueError(f"{spec}: entry {entry} is not in mesh "
+                             f"order {tuple(axis_names)}")
+    return tuple(Shard(where[name]) if name in where else Replicate()
+                 for name in axis_names)
+
+
+def dp_axes(mesh) -> Tuple[str, ...]:
+    return tuple(a for a in ("pod", "data") if a in mesh.axis_names)
+
+
+def tp_size(mesh) -> int:
+    return mesh.shape.get("model", 1)
+
+
+def make_rules(cfg: ModelConfig, mesh, *,
+               flash_decode: bool = False) -> Dict[str, Axis]:
+    """flash_decode: for GQA archs with K < TP, shard the KV cache over
+    the SEQUENCE/pages dim instead of head_dim (flash-decoding style)."""
+    tp = tp_size(mesh)
+    kv_even = cfg.num_kv_heads % tp == 0
+    rules: Dict[str, Axis] = {
+        "batch": dp_axes(mesh),
+        "vocab": "model",
+        "embed": "data" if "data" in mesh.axis_names else None,
+        "ff": "model",
+        "heads": "model",
+        "heads_d": "model",          # rwkv fused (H*hs) output dim
+        "kv_heads": "model" if kv_even else None,
+        "head_dim": (None if kv_even or flash_decode else "model"),
+        "kv_seq": ("model" if flash_decode and not kv_even else None),
+        "lru": "model",
+        "lru_blocks": None,          # block-diag gate blocks stay replicated
+        "layers": None,
+        "experts": None,
+        "expert_ff": None,
+    }
+    if cfg.moe is not None:
+        if cfg.moe.expert_sharding == "expert":
+            rules["experts"] = "model"
+        else:
+            rules["expert_ff"] = "model"
+    return rules
+
+
+def spec_for(axes: Tuple, rules: Dict[str, Axis],
+             shape: Optional[Tuple[int, ...]] = None,
+             mesh=None) -> PartitionSpec:
+    """Logical axes -> PartitionSpec. If `shape` (+mesh) is given, mesh
+    axes that do not evenly divide the dim are dropped (replicated):
+    argument shardings must divide evenly; intermediates may stay
+    uneven."""
+    parts = []
+    for i, ax in enumerate(axes):
+        r = None if ax is None else rules.get(ax, None)
+        if r is not None and shape is not None and mesh is not None:
+            total = 1
+            for nm in _names(r):
+                total *= mesh.shape.get(nm, 1)
+            if total == 0 or shape[i] % total != 0:
+                r = None
+        parts.append(r)
+    return PartitionSpec(*parts)
+
+
+def sharding_for(axes: Tuple, mesh, rules: Dict[str, Axis],
+                 shape: Optional[Tuple[int, ...]] = None) -> NamedSharding:
+    return NamedSharding(mesh, spec_for(axes, rules, shape, mesh))
+
+
+# --------------------------------------------------------------------------
+# Trees
+# --------------------------------------------------------------------------
+
+def _axes_leaf(x) -> bool:
+    return isinstance(x, tuple) and all(
+        a is None or isinstance(a, str) for a in x)
+
+
+def tree_leaves(tree: Any, is_leaf: Callable[[Any], bool] = None) -> list:
+    """Leaves in the reference's order: dict keys sorted, then tuples and
+    lists in order."""
+    if is_leaf is not None and is_leaf(tree):
+        return [tree]
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k], is_leaf)]
+    if isinstance(tree, (tuple, list)):
+        return [x for t in tree for x in tree_leaves(t, is_leaf)]
+    return [tree]
+
+
+def tree_map(fn: Callable, tree: Any, *rest: Any,
+             is_leaf: Callable[[Any], bool] = None) -> Any:
+    """`fn` over the leaves of `tree` and the matching leaves of `rest`,
+    rebuilt in `tree`'s structure."""
+    if is_leaf is not None and is_leaf(tree):
+        return fn(tree, *rest)
+    if isinstance(tree, dict):
+        for r in rest:
+            if not isinstance(r, dict) or set(r) != set(tree):
+                raise ValueError(f"tree keys {sorted(tree)} do not match "
+                                 f"{sorted(r) if isinstance(r, dict) else r}")
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest),
+                            is_leaf=is_leaf) for k in tree}
+    if isinstance(tree, (tuple, list)):
+        for r in rest:
+            if len(r) != len(tree):
+                raise ValueError(f"tree of {len(tree)} does not match one "
+                                 f"of {len(r)}")
+        return type(tree)(tree_map(fn, t, *(r[i] for r in rest),
+                                   is_leaf=is_leaf)
+                          for i, t in enumerate(tree))
+    return fn(tree, *rest)
+
+
+def tree_shardings(axes_tree: Any, mesh, rules: Dict[str, Axis],
+                   shapes_tree: Any = None):
+    """Map a tree of logical-axis tuples to NamedShardings. When
+    `shapes_tree` (a matching tree of tensors, meta ones included) is
+    given, non-dividing mesh axes are dropped per leaf."""
+    if shapes_tree is None:
+        return tree_map(lambda axes: sharding_for(axes, mesh, rules),
+                        axes_tree, is_leaf=_axes_leaf)
+    flat_axes = tree_leaves(axes_tree, _axes_leaf)
+    flat_shapes = tree_leaves(shapes_tree)
+    if len(flat_axes) != len(flat_shapes):
+        raise ValueError(
+            f"axes tree ({len(flat_axes)} leaves) does not match shapes "
+            f"tree ({len(flat_shapes)} leaves)")
+    return tree_map(lambda a, s: sharding_for(a, mesh, rules, tuple(s.shape)),
+                    axes_tree, shapes_tree, is_leaf=_axes_leaf)
+
+
+def replicated(mesh) -> NamedSharding:
+    return NamedSharding(mesh, PartitionSpec())
+
+
+# --------------------------------------------------------------------------
+# Placing tensors on a mesh
+# --------------------------------------------------------------------------
+
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def _place_one(x, sharding: NamedSharding):
+    """This rank's shard of the whole tensor `x`, as a DTensor: no
+    communication (every rank holds the same `x`)."""
+    from torch.distributed.tensor import DTensor, Shard
+    mesh = sharding.mesh
+    dm = mesh.device_mesh
+    if dm is None:
+        raise ValueError(f"{mesh!r} has no DeviceMesh to place tensors on")
+    placements = sharding.placements
+    coord = dm.get_coordinate()
+    local = x
+    for m, pl in enumerate(placements):
+        if isinstance(pl, Shard):
+            n = dm.size(m)
+            if local.shape[pl.dim] % n:
+                raise ValueError(f"dim {pl.dim} of {tuple(x.shape)} does not "
+                                 f"divide over {n} ranks of "
+                                 f"{mesh.axis_names[m]!r}")
+            local = local.chunk(n, dim=pl.dim)[coord[m]]
+    return DTensor.from_local(local, dm, placements, run_check=False,
+                              shape=x.shape, stride=x.stride())
+
+
+def place(tree: Any, shardings: Any) -> Any:
+    """Whole tensors -> DTensors by `shardings` (a matching tree of
+    NamedShardings). Every rank passes the same whole tensors and keeps
+    its own shard of each: the local tensor is a view of the leaf."""
+    return tree_map(_place_one, tree, shardings)
+
+
+def local(tree: Any, manual: Tuple[str, ...] = ()) -> Any:
+    """The local tensor of every DTensor leaf (plain tensors pass as they
+    are). Raises where a leaf is sharded over a mesh dim larger than one
+    that is not `manual`: this process holds only its shard there, and
+    the port computes on whole tensors (execution over such dims needs
+    DTensor dispatch with rules for the kernels). `manual` names axes
+    whose shards are this process's own data, as the reference's
+    `shard_map(axis_names=...)` region does."""
+    from torch.distributed.tensor import Shard
+
+    def one(x):
+        if not _is_dtensor(x):
+            return x
+        dm = x.device_mesh
+        for m, pl in enumerate(x.placements):
+            name = dm.mesh_dim_names[m]
+            if isinstance(pl, Shard) and dm.size(m) > 1 \
+                    and name not in manual:
+                raise ValueError(
+                    f"a leaf of shape {tuple(x.shape)} is sharded over mesh "
+                    f"axis {name!r} of size {dm.size(m)}: only size-1 axes "
+                    f"(or manual ones, {manual}) execute here")
+        return x.to_local()
+
+    return tree_map(one, tree)
+
+
+# --------------------------------------------------------------------------
+# Activation sharding constraints
+# --------------------------------------------------------------------------
+# Model code pins activation shardings via `constrain(x, logical_axes)`;
+# the rules are installed process-globally, for the duration of a cell's
+# `fn` (`installed_rules`), and `constrain` returns x unchanged when no
+# rules are installed or x is a plain tensor. Every executed path
+# computes on plain tensors (`local` takes them out of the DTensors
+# before a step runs, and every kernel refuses a DTensor), so the call
+# sites in the models act only once DTensors reach model code, with
+# execution over mesh axes larger than one card.
+
+_RULES: Optional[Dict[str, Axis]] = None
+
+
+def set_global_rules(rules: Optional[Dict[str, Axis]]) -> None:
+    global _RULES
+    _RULES = rules
+
+
+def get_global_rules() -> Optional[Dict[str, Axis]]:
+    return _RULES
+
+
+@contextlib.contextmanager
+def installed_rules(rules: Optional[Dict[str, Axis]]) -> Iterator[None]:
+    """`rules` installed for the body of the `with`, the outer ones (or
+    none) back after it, on an exception too."""
+    outer = _RULES
+    set_global_rules(rules)
+    try:
+        yield
+    finally:
+        set_global_rules(outer)
+
+
+def constrain(x, axes: Tuple):
+    """x, or for a DTensor under installed rules, x redistributed to the
+    placements of `spec_for(axes, rules)` on its own mesh."""
+    if _RULES is None or not _is_dtensor(x):
+        return x
+    dm = x.device_mesh
+    placements = _placements(spec_for(axes, _RULES), dm.mesh_dim_names)
+    if tuple(x.placements) == placements:
+        return x
+    return x.redistribute(dm, placements)

@@ -23,7 +23,7 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, require_plain
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "paged_attention.cu"
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}   # the kernel's type codes
@@ -104,6 +104,8 @@ def split_pages(B: int, K: int, G: int, P: int, sms: int,
 
 
 def _check(q, k_pool, v_pool, block_table, lens):
+    require_plain("paged_decode_attention_cuda", q, k_pool, v_pool,
+                  block_table, lens)
     if not isinstance(q, torch.Tensor) or q.device.type != "cuda":
         raise ValueError("paged_decode_attention_cuda needs CUDA tensors")
     if q.dim() != 3 or k_pool.dim() != 5 or k_pool.shape != v_pool.shape:

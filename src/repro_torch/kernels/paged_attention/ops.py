@@ -2,12 +2,13 @@
 
 A CUDA tensor launches the hand-written Hopper kernels (`kernel.py`); a
 CPU tensor takes the plain PyTorch version (`ref.py`). Any other input
-raises — a CUDA tensor never silently falls back to the plain version.
+(a DTensor included) raises — a CUDA tensor never silently falls back to the plain version.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import require_plain
 from repro_torch.kernels.paged_attention.kernel import \
     paged_decode_attention_cuda
 from repro_torch.kernels.paged_attention.ref import paged_decode_attention_ref
@@ -20,6 +21,8 @@ def paged_decode_attention(q, k_pool, v_pool, block_table, lens):
     lens: (B,) int32. Returns (B, H, hd) in q.dtype."""
     if not isinstance(q, torch.Tensor):
         raise TypeError(f"q must be a torch.Tensor, got {type(q).__name__}")
+    require_plain("paged_decode_attention", q, k_pool, v_pool, block_table,
+                  lens)
     if q.device.type == "cuda":
         return paged_decode_attention_cuda(q, k_pool, v_pool, block_table,
                                            lens)

@@ -20,7 +20,7 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, require_plain
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "rmsnorm.cu"
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}   # the kernel's type codes
@@ -117,6 +117,7 @@ def rms_norm_cuda(x: torch.Tensor, scale: torch.Tensor,
     scale (d,) float32 or bfloat16 on the same card. Returns a new
     tensor of x's shape and dtype."""
     global launches
+    require_plain("rms_norm_cuda", x, scale)
     if not isinstance(x, torch.Tensor) or x.device.type != "cuda":
         raise ValueError("rms_norm_cuda needs a CUDA tensor")
     if x.dtype not in DTYPES or scale.dtype not in DTYPES:

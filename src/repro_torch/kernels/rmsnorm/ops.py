@@ -3,13 +3,14 @@
 A CUDA tensor runs the hand-written Hopper kernel (`kernel.py`) through
 `RMSNormFunction`, which gives it a gradient; a CPU tensor takes the
 plain PyTorch version (`ref.py`), which autograd differentiates. Any
-other input raises — a CUDA tensor never silently falls back to the
+other input (a DTensor included) raises — a CUDA tensor never silently falls back to the
 plain version.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import require_plain
 from repro_torch.kernels.rmsnorm.kernel import rms_norm_cuda
 from repro_torch.kernels.rmsnorm.ref import rms_norm_ref
 
@@ -66,6 +67,7 @@ def rms_norm_op(x: torch.Tensor, scale: torch.Tensor,
     """y = x * rsqrt(mean(x^2, -1) + eps) * scale, in x's dtype."""
     if not isinstance(x, torch.Tensor):
         raise TypeError(f"x must be a torch.Tensor, got {type(x).__name__}")
+    require_plain("rms_norm_op", x, scale)
     if x.device.type == "cuda":
         return RMSNormFunction.apply(x, scale, eps)
     if x.device.type == "cpu":

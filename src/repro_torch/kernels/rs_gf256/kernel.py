@@ -40,7 +40,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, require_plain
 from repro_torch.kernels.rs_gf256.ref import GF_MUL_TABLE
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "gf256_matmul.cu"
@@ -317,6 +317,7 @@ def gf256_matmul_ladder_cuda(G, X: torch.Tensor) -> torch.Tensor:
 
 def _check(name: str, G, X: torch.Tensor) -> Tuple[int, int, int]:
     """Raise on operands the kernels do not take; returns (m, k, L)."""
+    require_plain(name, G, X)
     if not isinstance(X, torch.Tensor) or X.device.type != "cuda":
         raise ValueError(f"{name} needs a CUDA tensor")
     if X.dtype != torch.uint8 or X.dim() != 2:

@@ -4,13 +4,14 @@ the `backend` chosen, mirroring the JAX package's
 
 A CUDA tensor launches a hand-written Hopper kernel (`kernel.py`); a
 CPU tensor takes that kernel's plain PyTorch version (`ref.py`). Any
-other input raises — a CUDA tensor never silently falls back to a plain
+other input (a DTensor included) raises — a CUDA tensor never silently falls back to a plain
 version.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import require_plain
 from repro_torch.kernels.rs_gf256.kernel import (gf256_matmul_cuda,
                                                  gf256_matmul_ladder_cuda)
 from repro_torch.kernels.rs_gf256.ref import (gf256_matmul_ladder_ref,
@@ -43,6 +44,7 @@ def gf256_matmul(G, X: torch.Tensor, *, backend: str = "auto"
                          f"{sorted(_BACKENDS)}")
     if not isinstance(X, torch.Tensor):
         raise TypeError(f"X must be a torch.Tensor, got {type(X).__name__}")
+    require_plain("gf256_matmul", G, X)
     on_cuda, on_cpu = _BACKENDS[backend]
     if X.device.type == "cuda":
         return on_cuda(G, X)

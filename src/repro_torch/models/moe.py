@@ -23,6 +23,7 @@ from typing import Dict, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models.layers import activate
 
 
@@ -105,7 +106,8 @@ def moe_ffn(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor
     idx = disp.long()                                        # (B, E*C)
     xpad = torch.cat([x, x.new_zeros((B, 1, d))], dim=1)
     xd = torch.gather(xpad, 1, idx[..., None].expand(B, E * cap, d))
-    xd = xd.reshape(B, E, cap, d)                            # (B, E, C, d)
+    xd = constrain(xd.reshape(B, E, cap, d),
+                   ("batch", "experts", None, None))        # (B, E, C, d)
     h = activate(torch.einsum("becd,edf->becf", xd, p["we_gate"]), cfg.act)
     h = h * torch.einsum("becd,edf->becf", xd, p["we_up"])
     y = torch.einsum("becf,efd->becd", h, p["we_down"])     # (B, E, C, d)
@@ -113,7 +115,7 @@ def moe_ffn(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor
     out = torch.zeros((B, S + 1, d), dtype=torch.float32, device=x.device)
     rows = torch.arange(B, device=x.device)[:, None].expand(B, E * cap)
     out.index_put_((rows, idx), y.reshape(B, E * cap, d), accumulate=True)
-    return out[:, :S].to(x.dtype), aux
+    return constrain(out[:, :S].to(x.dtype), ("batch", None, None)), aux
 
 
 def moe_ffn_dense(cfg: ModelConfig, p: Dict[str, torch.Tensor],

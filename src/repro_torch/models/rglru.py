@@ -28,6 +28,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, RGLRUConfig, padded_vocab
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models import layers as L
 from repro_torch.models.transformer import _dtype, _out_proj, _proj
 
@@ -107,6 +108,10 @@ def param_specs(cfg: ModelConfig):
         for name, (shape, axes) in _block_specs(cfg, kind).items():
             s[f"tail/{ti}/{name}"] = (shape, axes)
     return s
+
+
+def logical_axes(cfg: ModelConfig):
+    return {k: v[1] for k, v in param_specs(cfg).items()}
 
 
 def init_params(cfg: ModelConfig,
@@ -208,7 +213,7 @@ def rg_lru(u: torch.Tensor, p: Dict[str, torch.Tensor], h0: torch.Tensor):
 
 def recurrent_block(cfg, p, x, st, *, decode: bool):
     """st: {"h": (B,W) f32, "conv": (B,cw-1,W)}."""
-    u = x @ p["wx"]
+    u = constrain(x @ p["wx"], ("batch", None, "lru"))
     u, conv_state = causal_conv1d(u, p["conv_w"], p["conv_b"], st["conv"])
     h, hT = rg_lru(u, p, st["h"])
     gate = F.gelu(x @ p["wg"], approximate="tanh")
@@ -259,6 +264,7 @@ def attention_block(cfg, p, x, st, *, decode: bool, pos=None):
 
 
 def _block(cfg, kind, p, x, st, *, decode=False, pos=None):
+    x = constrain(x, ("batch", None, None))
     h = L.rms_norm(x, p["ln1"], cfg.rms_eps)
     if kind == "recurrent":
         out, st = recurrent_block(cfg, p, h, st, decode=decode)
@@ -267,7 +273,7 @@ def _block(cfg, kind, p, x, st, *, decode=False, pos=None):
     x = x + out
     h = L.rms_norm(x, p["ln2"], cfg.rms_eps)
     mlp = L.mlp_glu(h, p["w_gate"], p["w_up"], p["w_down"], cfg.act)
-    return x + mlp, st
+    return constrain(x + mlp, ("batch", None, None)), st
 
 
 # --------------------------------------------------------------------------
@@ -301,6 +307,31 @@ def init_state(cfg: ModelConfig, batch: int, *, device="cuda"):
                                              device=device)
     for ti, kind in enumerate(tail):
         st[f"tail/{ti}"] = _block_state(cfg, kind, batch, device=device)
+    return st
+
+
+def abstract_state(cfg: ModelConfig, batch: int):
+    """The state's shapes and dtypes on the meta device (no memory)."""
+    return init_state(cfg, batch, device="meta")
+
+
+def state_logical_axes(cfg: ModelConfig):
+    pat = _cfg(cfg).block_pattern
+    n_super, tail = layer_plan(cfg)
+
+    def ax(kind, lead):
+        if kind == "recurrent":
+            return {"h": lead + ("batch", "lru"),
+                    "conv": lead + ("batch", None, "lru")}
+        return {"k": lead + ("batch", None, "kv_heads", "head_dim"),
+                "v": lead + ("batch", None, "kv_heads", "head_dim")}
+
+    st: Dict[str, Any] = {"len": ()}
+    if n_super:
+        for bi, kind in enumerate(pat):
+            st[f"super/{bi}"] = ax(kind, ("layers",))
+    for ti, kind in enumerate(tail):
+        st[f"tail/{ti}"] = ax(kind, ())
     return st
 
 
@@ -344,7 +375,7 @@ def forward(cfg: ModelConfig, params, batch, *, state=None,
     n_super, tail_kinds = layer_plan(cfg)
     top, sup, tail = _split(params)
     tok = batch["tokens"]
-    x = embed_tokens(cfg, top["embed"], tok)
+    x = constrain(embed_tokens(cfg, top["embed"], tok), ("batch", None, None))
     B = x.shape[0]
     st = state if state is not None else init_state(cfg, B, device=x.device)
     pos = st["len"]
@@ -378,7 +409,8 @@ def forward(cfg: ModelConfig, params, batch, *, state=None,
     if last_only:
         x = x[:, -1:]
     w = top["embed"] if cfg.tie_embeddings else top["head"]
-    logits = L.soft_cap(x @ w.T, cfg.logit_softcap)
+    logits = constrain(x @ w.T, ("batch", None, "vocab"))
+    logits = L.soft_cap(logits, cfg.logit_softcap)
     logits = L.mask_pad_logits(logits, cfg.vocab_size)
     if return_state:
         new_state: Dict[str, Any] = {"len": pos + tok.shape[1]}

@@ -29,6 +29,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, RWKVConfig, padded_vocab
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models import layers as L
 from repro_torch.models.transformer import _dtype
 
@@ -77,6 +78,10 @@ def param_specs(cfg: ModelConfig):
     lyr("wcv", (ff, d), ("ff", "embed"))
     lyr("wcr", (d, d), ("embed", "heads_d"))
     return s
+
+
+def logical_axes(cfg: ModelConfig):
+    return {k: v[1] for k, v in param_specs(cfg).items()}
 
 
 def init_params(cfg: ModelConfig,
@@ -224,9 +229,12 @@ def time_mix(cfg: ModelConfig, p, x, tm_state, wkv_state, *,
     H, hs = d // rw.head_size, rw.head_size
     xx = _token_shift(x, tm_state) - x
     xw, xk, xv, xr, xg = _ddlerp(p, x, xx)
-    r = (xr @ p["wr"]).reshape(B, S, H, hs)
-    k = (xk @ p["wk"]).reshape(B, S, H, hs)
-    v = (xv @ p["wv"]).reshape(B, S, H, hs)
+    r = constrain((xr @ p["wr"]).reshape(B, S, H, hs),
+                  ("batch", None, "heads", None))
+    k = constrain((xk @ p["wk"]).reshape(B, S, H, hs),
+                  ("batch", None, "heads", None))
+    v = constrain((xv @ p["wv"]).reshape(B, S, H, hs),
+                  ("batch", None, "heads", None))
     g = F.silu(xg @ p["wg"])
     dlog = (p["w_base"].float()
             + (torch.tanh(xw @ p["wd1"]) @ p["wd2"]).float())
@@ -251,13 +259,15 @@ def channel_mix(cfg: ModelConfig, p, x, cm_state):
 
 def _layer(cfg, lp, x, st, *, wkv_impl):
     """st = {"tm": (B,d), "cm": (B,d), "wkv": (B,H,hs,hs)}."""
+    x = constrain(x, ("batch", None, None))
     h = L.rms_norm(x, lp["ln1"], cfg.rms_eps)
     out, tm, wkv = time_mix(cfg, lp, h, st["tm"], st["wkv"],
                             wkv_impl=wkv_impl)
     x = x + out
     h = L.rms_norm(x, lp["ln2"], cfg.rms_eps)
     out, cm = channel_mix(cfg, lp, h, st["cm"])
-    return x + out, {"tm": tm, "cm": cm, "wkv": wkv}
+    return constrain(x + out, ("batch", None, None)), \
+        {"tm": tm, "cm": cm, "wkv": wkv}
 
 
 def _split(params):
@@ -279,6 +289,18 @@ def init_state(cfg: ModelConfig, batch: int, *, device="cuda"):
             "len": torch.zeros((), dtype=torch.int32, device=device)}
 
 
+def abstract_state(cfg: ModelConfig, batch: int):
+    """The state's shapes and dtypes on the meta device (no memory)."""
+    return init_state(cfg, batch, device="meta")
+
+
+def state_logical_axes(cfg: ModelConfig):
+    return {"tm": ("layers", "batch", None),
+            "cm": ("layers", "batch", None),
+            "wkv": ("layers", "batch", "heads", None, None),
+            "len": ()}
+
+
 def forward(cfg: ModelConfig, params, batch, *, state=None,
             wkv_impl: str = "chunked", remat: bool = True,
             return_state: bool = False, last_only: bool = False):
@@ -289,7 +311,7 @@ def forward(cfg: ModelConfig, params, batch, *, state=None,
     `jax.checkpoint(..., nothing_saveable)` over its scanned layer."""
     top, lyr = _split(params)
     tok = batch["tokens"]
-    x = top["embed"][tok.long()]
+    x = constrain(top["embed"][tok.long()], ("batch", None, None))
     x = L.rms_norm(x, top["embed_norm"], cfg.rms_eps)
     B = x.shape[0]
     st = state if state is not None else init_state(cfg, B, device=x.device)
@@ -312,7 +334,8 @@ def forward(cfg: ModelConfig, params, batch, *, state=None,
     if last_only:
         x = x[:, -1:]
     w = top["embed"] if cfg.tie_embeddings else top["head"]
-    logits = L.mask_pad_logits(x @ w.T, cfg.vocab_size)
+    logits = constrain(x @ w.T, ("batch", None, "vocab"))
+    logits = L.mask_pad_logits(logits, cfg.vocab_size)
     if return_state:
         new_state = {k: torch.stack(v) for k, v in new.items()}
         new_state["len"] = st["len"] + tok.shape[1]

@@ -5,7 +5,8 @@ The same model as the JAX package's `models/transformer.py`: the same
 flat parameter dict (`"embed"`, `"layers/wq"`, ... with a leading layer
 axis on layer parameters), the same layouts and the same caches. What
 differs is PyTorch idiom: layers run in a Python loop, caches are
-updated in place, and there is no mesh (one device). Training remats
+updated in place, and the activation `constrain` calls act only on
+DTensors (a plain tensor passes unchanged). Training remats
 each layer with `torch.utils.checkpoint` where the reference uses
 `jax.checkpoint`. The MoE FFN is `models/moe.py`'s.
 
@@ -24,6 +25,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, padded_vocab
+from repro_torch.distributed.sharding import constrain, get_global_rules
 from repro_torch.kernels.paged_attention.ops import paged_decode_attention
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
@@ -95,6 +97,10 @@ def param_specs(cfg: ModelConfig) -> Dict[str, Tuple[Tuple[int, ...], Tuple]]:
             lyr("ws_down", (m.d_shared, d), ("ff", "embed"))
             lyr("shared_gate", (d,), ("embed",))
     return s
+
+
+def logical_axes(cfg: ModelConfig) -> Dict[str, Tuple]:
+    return {k: v[1] for k, v in param_specs(cfg).items()}
 
 
 def init_params(cfg: ModelConfig,
@@ -171,6 +177,9 @@ def _attn(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
     values (decode reads kv_in as the full cache, new kv written)."""
     H = cfg.num_heads
     q, k, v = _qkv(cfg, p, x, positions)
+    q = constrain(q, ("batch", None, "heads", None))
+    k = constrain(k, ("batch", None, "kv_heads", "head_dim"))
+    v = constrain(v, ("batch", None, "kv_heads", "head_dim"))
     if mode == "decode":
         k_cache, v_cache = kv_in
         out = L.decode_attention(q, L.expand_kv(k_cache, H),
@@ -203,13 +212,14 @@ def _ffn(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor):
 def _layer(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
            positions, *, mode: str, kv_in=None, cache_len=None,
            attn_impl: str = "masked"):
+    x = constrain(x, ("batch", None, None))
     h = L.rms_norm(x, p["ln1"], cfg.rms_eps)
     attn_out, kv = _attn(cfg, p, h, positions, mode=mode, kv_in=kv_in,
                          cache_len=cache_len, attn_impl=attn_impl)
     x = x + attn_out
     h = L.rms_norm(x, p["ln2"], cfg.rms_eps)
     ffn_out, aux = _ffn(cfg, p, h)
-    return x + ffn_out, kv, aux
+    return constrain(x + ffn_out, ("batch", None, None)), kv, aux
 
 
 def _split_layers(params: Dict[str, torch.Tensor]):
@@ -236,7 +246,7 @@ def embed_inputs(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor]):
         x = batch["frame_embeds"].to(_dtype(cfg))
         pos = torch.arange(x.shape[1], device=dev)
         x = x + L.sinusoidal_pos_embed(pos, cfg.d_model).to(x.dtype)[None]
-        return x, pos, 0
+        return constrain(x, ("batch", None, None)), pos, 0
     x = top["embed"][batch["tokens"].long()]
     prefix = 0
     if cfg.frontend.kind == "vlm":
@@ -244,16 +254,18 @@ def embed_inputs(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor]):
         px = patches @ top["patch_proj"]
         x = torch.cat([px, x], dim=1)
         prefix = px.shape[1]
-    return x, torch.arange(x.shape[1], device=dev), prefix
+    return constrain(x, ("batch", None, None)), \
+        torch.arange(x.shape[1], device=dev), prefix
 
 
 def output_logits(cfg: ModelConfig, params, h: torch.Tensor) -> torch.Tensor:
     top, _ = _split_layers(params)
     w = top["embed"] if cfg.tie_embeddings else top["head"]
     if cfg.frontend.kind == "audio" and cfg.frontend.num_codebooks > 1:
-        logits = torch.einsum("bsd,cvd->bscv", h, w)
+        logits = constrain(torch.einsum("bsd,cvd->bscv", h, w),
+                           ("batch", None, None, "vocab"))
     else:
-        logits = h @ w.T
+        logits = constrain(h @ w.T, ("batch", None, "vocab"))
     return L.mask_pad_logits(logits, cfg.vocab_size)
 
 
@@ -337,6 +349,20 @@ def init_cache(cfg: ModelConfig, batch: int, spec: CacheSpec, *,
             "block_table": table, "len": length}
 
 
+def abstract_cache(cfg: ModelConfig, batch: int, spec: CacheSpec):
+    """The cache's shapes and dtypes on the meta device: never allocated
+    (a 32k-context cache is hundreds of GB)."""
+    return init_cache(cfg, batch, spec, device="meta")
+
+
+def cache_logical_axes(cfg: ModelConfig, spec: CacheSpec):
+    if spec.layout == "contiguous":
+        kv = ("layers", "batch", "kv_seq", "kv_heads", "head_dim")
+        return {"k": kv, "v": kv, "len": ()}
+    kv = ("layers", "batch", "kv_seq", None, "kv_heads", "head_dim")
+    return {"k": kv, "v": kv, "block_table": ("batch", None), "len": ()}
+
+
 def _gather_pages(pool: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
     """pool: (B, P, ps, K, hd); table: (B, P) logical->physical page ids.
 
@@ -382,7 +408,12 @@ def decode_step(cfg: ModelConfig, params, batch, cache, *,
     else:
         x = top["embed"][batch["token"].long()]
     positions = pos[None]                        # (1,)
+    x = constrain(x, ("batch", None, None))
     paged = spec.layout == "paged"
+    kv_axes = ("batch", "kv_seq", "kv_heads", "head_dim")
+    # flash-decoding: per-S-shard scores need the (tiny) q on every
+    # model shard; replicating q beats gathering the cache
+    replicate_q = bool((get_global_rules() or {}).get("kv_seq"))
     kernel = paged and cache["k"].device.type == "cuda"
     B = x.shape[0]
     if kernel:
@@ -394,6 +425,8 @@ def decode_step(cfg: ModelConfig, params, batch, cache, *,
         kc, vc = cache["k"][i], cache["v"][i]    # views into the pools
         h = L.rms_norm(x, lp["ln1"], cfg.rms_eps)
         q, k, v = _qkv(cfg, lp, h, positions)
+        if replicate_q:
+            q = constrain(q, ("batch", None, None, None))
         if paged:
             _scatter_token(kc, cache["block_table"], pos, k[:, 0])
             _scatter_token(vc, cache["block_table"], pos, v[:, 0])
@@ -402,17 +435,20 @@ def decode_step(cfg: ModelConfig, params, batch, cache, *,
                                              lens)[:, None]
             else:
                 out = L.decode_attention_grouped(
-                    q, _gather_pages(kc, cache["block_table"]),
-                    _gather_pages(vc, cache["block_table"]), pos + 1)
+                    q, constrain(_gather_pages(kc, cache["block_table"]),
+                                 kv_axes),
+                    constrain(_gather_pages(vc, cache["block_table"]),
+                              kv_axes), pos + 1)
         else:
             idx = pos.long().reshape(1)
             kc.index_copy_(1, idx, k.to(kc.dtype))
             vc.index_copy_(1, idx, v.to(vc.dtype))
-            out = L.decode_attention_grouped(q, kc, vc, pos + 1)
+            out = L.decode_attention_grouped(q, constrain(kc, kv_axes),
+                                             constrain(vc, kv_axes), pos + 1)
         x = x + _out_proj(out.to(x.dtype), lp["wo"])
         h = L.rms_norm(x, lp["ln2"], cfg.rms_eps)
         ffn_out, _ = _ffn(cfg, lp, h)
-        x = x + ffn_out
+        x = constrain(x + ffn_out, ("batch", None, None))
     x = L.rms_norm(x, top["final_norm"], cfg.rms_eps)
     logits = output_logits(cfg, params, x)
     return logits, dict(cache, len=pos + 1)

@@ -7,7 +7,8 @@ corrections, in the same order of f32 operations. Every quantity stays
 a tensor on the parameters' device, so an update makes no host sync.
 The update is functional, as the reference's: it returns new tensors
 and leaves its inputs as they were (a caller may still hold them, e.g.
-a checkpoint of the previous step). There is no mesh (one device).
+a checkpoint of the previous step). `opt_logical_axes` gives the
+state's logical axes for the sharding rules.
 """
 from __future__ import annotations
 
@@ -60,6 +61,13 @@ def abstract_opt_state(abstract_params: Params) -> Dict:
         "master": {k: f32(p) for k, p in abstract_params.items()},
         "count": _count("meta"),
     }
+
+
+def opt_logical_axes(param_axes: Dict[str, Tuple]) -> Dict:
+    """The state's logical axes: each moment and the master weights
+    sharded as their parameter, the count replicated."""
+    return {"mu": dict(param_axes), "nu": dict(param_axes),
+            "master": dict(param_axes), "count": ()}
 
 
 def _schedule(cfg: AdamWConfig, count: torch.Tensor) -> torch.Tensor:

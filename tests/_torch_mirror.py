@@ -16,6 +16,7 @@ module to rebuild it.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import re
 import types
 from pathlib import Path
@@ -65,19 +66,26 @@ def tiny_store():
 
 def port_source(src: str) -> str:
     """The reference test source with its imports retargeted at the
-    port."""
+    port (JAX's `PartitionSpec` included: the port has its own)."""
     src = re.sub(r"\b(from|import) repro\.", r"\1 repro_torch.", src)
+    src = re.sub(r"\bfrom jax\.sharding import PartitionSpec\b",
+                 "from repro_torch.distributed.sharding import "
+                 "PartitionSpec", src)
     return re.sub(r"\bfrom repro import\b", "from repro_torch import", src)
 
 
 def _cpu_defaults(ns: dict) -> None:
     """Rebind the test module's `StoreConfig` / `RSCodec` to subclasses
     whose device defaults to the CPU (looked up at call time, so every
-    store and codec the tests build runs the plain PyTorch product)."""
+    store and codec the tests build runs the plain PyTorch product), and
+    its `make_test_mesh` to meshes over the CPU (a gloo world)."""
     if "StoreConfig" in ns:
         ns["StoreConfig"] = CPUStoreConfig
     if "RSCodec" in ns:
         ns["RSCodec"] = CPURSCodec
+    if "make_test_mesh" in ns:
+        ns["make_test_mesh"] = functools.partial(ns["make_test_mesh"],
+                                                 device="cpu")
 
 
 def _is_fixture(obj) -> bool:

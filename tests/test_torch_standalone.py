@@ -1,7 +1,9 @@
 """The port stands alone: nothing under src/repro_torch/ and not
 chip_smoke.py imports jax or the JAX package, importing the store, the
 scale-out frontends, the devtools, the serving stack, the models, the
-configs and the training stack leaves jax out of sys.modules, and the
+configs, the training stack, the sharding rules, meshes, specs and
+compression (and `chip_smoke.py` with its spawned pod workers' entry
+function) leaves jax out of sys.modules, and the
 default device of the store, of the sharded and process frontends and
 of the serving engine (the card) is refused — never silently replaced
 by the CPU — where CUDA is absent. The process frontend's forkserver
@@ -39,12 +41,13 @@ def test_port_sources_import_neither_jax_nor_reference():
     assert bad == []
 
 
-def _imports_leave_jax_unloaded(modules: str):
-    code = (f"import sys, {modules}; "
+def _imports_leave_jax_unloaded(modules: str, then: str = ""):
+    code = (f"import sys, {modules}; {then}"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')); print(bad); "
             "sys.exit(1 if bad else 0)")
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    env = dict(os.environ,
+               PYTHONPATH=os.pathsep.join([str(ROOT / "src"), str(ROOT)]))
     res = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
@@ -110,6 +113,29 @@ def test_training_import_leaves_jax_unloaded():
     _imports_leave_jax_unloaded(
         "repro_torch.launch.train, repro_torch.launch.steps, "
         "repro_torch.checkpoint, repro_torch.optim, repro_torch.data")
+
+
+def test_sharding_and_pod_worker_imports_leave_jax_unloaded():
+    # the modules of slice G, and everything chip_smoke's pod workers
+    # import: the worker's entry function is importable from the script
+    _imports_leave_jax_unloaded(
+        "repro_torch.distributed.sharding, repro_torch.launch.mesh, "
+        "repro_torch.launch.specs, repro_torch.optim.compression, "
+        "repro_torch.launch.steps, repro_torch.data.pipeline, "
+        "repro_torch.kernels.rmsnorm.kernel, chip_smoke",
+        then="assert callable(chip_smoke.pod_worker); ")
+
+
+def test_default_mesh_raises_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("the machine has a card: the default device is usable")
+    from repro_torch.launch.mesh import make_production_mesh, make_test_mesh
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        make_test_mesh(1, 1)
+    with pytest.raises(RuntimeError, match="needs 256 ranks"):
+        make_production_mesh()
+    with pytest.raises(RuntimeError, match="needs 512 ranks"):
+        make_production_mesh(multi_pod=True)
 
 
 def test_default_store_raises_without_cuda():
