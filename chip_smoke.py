@@ -104,7 +104,20 @@ points:
   mean within sum(s_i)/(2n) of the f32 mean of the pods' gradients, step
   1's loss equal to `make_train_step`'s on the whole batch split as the
   pods split it (within (a)'s margin); the step's median, the
-  all-gather's wall time and bytes beside `dcn_bytes_per_step`.
+  all-gather's wall time and bytes beside `dcn_bytes_per_step`;
+- the dry-run over the production meshes (phase 14): (a)
+  `repro_torch.launch.dryrun` for Qwen3-1.7B's train_4k, prefill_32k
+  and decode_32k cells on 16 x 16 and Qwen1.5-0.5B's train_4k with
+  `--grad-compress` on 2 x 16 x 16, each over a fake world of 256 / 512
+  ranks in a process of its own, printing each record's per-rank
+  memory, flops, bytes, collectives and roofline terms under `HW`; (b)
+  phase 13a's three cells traced on a 1 x 1 fake world on meta tensors
+  and held to the card: argument bytes equal to the arguments 13a
+  built, train and prefill flops within 1% of `FlopCounterMode` over one
+  more step of the cell, the decode's difference equal to the gathered
+  attention's 4 B H hd len L (the paged kernel's work) within 1%; each
+  cell's roofline bound beside 13a's measured time, and the train
+  cell's traced peak beside the card's.
 
 Every phase asserts; any failure exits non-zero. Prints timing lines,
 one `kernels` JSON line and, last, `{"ok": true, "device": {...}}`.
@@ -120,6 +133,7 @@ is not beside this script.
 from __future__ import annotations
 
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -430,6 +444,7 @@ PROFILE_STEPS = 3                # decode steps under torch.profiler
 LOGIT_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 RMS_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 PA_TOL = {"float32": 2e-5, "bfloat16": 3e-2}
+PA_256_DRAWS = 16                # phase 13a: draws of q for the paged check
 # (B, P, ps, K, G, hd): the reference's sweep, the main path's shape,
 # then G = 1, G = 8 and G = 12 (two head groups), pages of 16 and 128,
 # hd 64 (f32 and bf16 alike) and hd 8
@@ -2760,6 +2775,8 @@ def cells_phase(dev, card: str, cfg15, cfg3) -> dict:
     inputs. Returns the kernels' launches in the cells, the margins the
     unsharded runs showed and the paged kernel's timing at pages of 256,
     and the reference loss of 13b's first step."""
+    import math
+
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -2852,6 +2869,10 @@ def cells_phase(dev, card: str, cfg15, cfg3) -> dict:
                        batches[0]["tokens"])
     _, _, m = make_train_step(model, adamw.AdamWConfig())(params, opt, b2)
     pod_loss_ref = float(m["loss"])
+    # phase 14(b)'s card side: one more step of the cell's work, counted
+    dry = {"train": _counted(
+        dev, lambda: make_train_step(model, adamw.AdamWConfig())(
+            params, opt, batches[0]), (params, opt, batches[0]), step_s)}
     del params, opt, p_a, p_b, p_c, p_d, batches, b2, m, cell
     if on_card:
         torch.cuda.empty_cache()
@@ -2900,6 +2921,10 @@ def cells_phase(dev, card: str, cfg15, cfg3) -> dict:
           f"RMSNorm launches {rms_prefill} | {card}")
     assert pre_diff <= pre_margin and cache_diff <= pre_margin, \
         (pre_diff, cache_diff, pre_margin)
+    dry["prefill"] = _counted(
+        dev, lambda: model.prefill(params, {"tokens": prompts},
+                                   max_len=PROMPT),
+        (params, {"tokens": prompts}), [prefill_s])
     del lg_a, lg_b, lg_c, cache_a, cache_c
 
     # ---- decode: 16 sequences at seq_len 2112, 64 greedy steps -------
@@ -2951,6 +2976,12 @@ def cells_phase(dev, card: str, cfg15, cfg3) -> dict:
           f"{cfg3.num_layers} paged attention and {per_fwd} RMSNorm per "
           f"step | {card}")
     assert torch.equal(toks_c, toks_p)
+    # one more step over the last position (a full cache has no next)
+    last = dict(cache, len=cache["len"] - 1)
+    dry["decode"] = _counted(
+        dev, lambda: model.decode_step(params, {"token": tok}, last),
+        (params, {"token": tok}, last), dec_s)
+    dry["decode"]["gathered_len"] = int(P * ps)
     # the cell's DTensor edge alone (host work, no device op): what a
     # step of fn adds around decode_step, `place` of its token and its
     # results and `local` of its arguments and its token
@@ -2967,15 +2998,48 @@ def cells_phase(dev, card: str, cfg15, cfg3) -> dict:
 
     timing = None
     if on_card:
-        q = torch.randn((SLOTS, cfg3.num_heads, cfg3.head_dim), device=dev,
-                        dtype=torch.bfloat16)
         kc, vc = local(c_d)["k"][0], local(c_d)["v"][0]
         table = local(c_d)["block_table"]
         lens = torch.full((SLOTS,), seq, dtype=torch.int32, device=dev)
-        got = pa_kernel.paged_decode_attention_cuda(q, kc, vc, table, lens)
-        want_o = paged_decode_attention_ref(q, kc, vc, table, lens)
-        err = float((got.float() - want_o).abs().max())
-        assert err <= PA_TOL["bfloat16"], err
+        # q from the script's seed (SEED + i for draw i), as every other
+        # kernel check draws its inputs; held as phase 6 holds the paged
+        # kernel (atol and rtol PA_TOL: the kernel's output is bf16, the
+        # plain version's f32, and rounding to bf16 alone costs up to
+        # half an ulp, 0.031 at |out| >= 8); the worst element's error
+        # also in bf16 ulps of the plain answer there
+        err, ulps, pairs = 0.0, [], []
+        for i in range(PA_256_DRAWS):
+            g = torch.Generator(device=dev)
+            g.manual_seed(SEED + i)
+            q = torch.randn((SLOTS, cfg3.num_heads, cfg3.head_dim),
+                            device=dev, generator=g).to(torch.bfloat16)
+            got = pa_kernel.paged_decode_attention_cuda(q, kc, vc, table,
+                                                        lens).float()
+            want_o = paged_decode_attention_ref(q, kc, vc, table, lens)
+            pairs.append((got, want_o))
+            diff = (got - want_o).abs()
+            at = int(diff.argmax())
+            e, w = float(diff.flatten()[at]), float(want_o.flatten()[at])
+            ulp = 2.0 ** (math.floor(math.log2(abs(w))) - 7) if w else 0.0
+            rounding = abs(float(torch.tensor(w).bfloat16()) - w)
+            ulps.append((e, w, e / ulp if ulp else math.inf, rounding))
+            err = max(err, e)
+        e, w, u, r = max(ulps)
+        over = [(round(x[0], 4), round(abs(x[1]), 3), round(x[2], 3))
+                for x in ulps if x[0] > PA_TOL["bfloat16"]]
+        print(f"phase 13a paged kernel at pages of {ps} vs plain over "
+              f"{PA_256_DRAWS} draws of q (seeds {SEED}.."
+              f"{SEED + PA_256_DRAWS - 1}): max_abs_err {e:.4e} at |out| "
+              f"{abs(w):.4f} = {u:.3f} bf16 ulps there (rounding the plain "
+              f"answer to bf16 alone costs {r:.4e}); each draw's worst "
+              f"element at most {max(x[2] for x in ulps):.3f} ulps; "
+              f"{len(over)} draws above {PA_TOL['bfloat16']} abs (error, "
+              f"|out|, ulps: {over}) | {card}")
+        for got, want_o in pairs:
+            torch.testing.assert_close(got, want_o,
+                                       atol=PA_TOL["bfloat16"],
+                                       rtol=PA_TOL["bfloat16"])
+        del pairs
         pa_bytes = 2 * q.numel() * 2 + kv_bytes(cfg3, SLOTS, seq) \
             // cfg3.num_layers + table.numel() * 4 + lens.numel() * 4
         pa_flops = 4 * SLOTS * cfg3.num_heads * cfg3.head_dim * seq
@@ -3009,7 +3073,38 @@ def cells_phase(dev, card: str, cfg15, cfg3) -> dict:
     return {"rmsnorm": rms_train + rms_prefill + launches["rmsnorm"],
             "paged_decode_attention": launches["paged_decode_attention"],
             "loss_margin": loss_margin, "pod_loss_ref": pod_loss_ref,
-            "paged_256": timing}
+            "paged_256": timing, "dry": dry}
+
+
+def _tree_bytes(tree) -> int:
+    from repro_torch.distributed.sharding import tree_leaves
+    return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+
+def _counted(dev, fn, args, seconds) -> dict:
+    """One run of `fn` (the work of a phase 13a cell) under
+    `FlopCounterMode`: its matrix-product flops, the bytes of its
+    arguments, the device memory it held at most (the arguments' bytes
+    plus its rise over what was allocated before it) and the median of
+    the cell's measured `seconds`."""
+    import statistics
+
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+    on_card = dev.type == "cuda"
+    _sync(dev)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+    with FlopCounterMode(display=False) as counter:
+        out = fn()
+    _sync(dev)
+    nbytes = _tree_bytes(args)
+    peak = (torch.cuda.max_memory_allocated() - before + nbytes
+            if on_card else None)
+    del out
+    return {"arg_bytes": nbytes, "flops": counter.get_total_flops(),
+            "peak_bytes": peak, "median_s": statistics.median(seconds)}
 
 
 def _digest(t) -> tuple:
@@ -3239,6 +3334,136 @@ def pod_phase(dev, card: str, work: Path, cfg15, ref: dict) -> dict:
           f"gathered bytes seen per step and rank {r0['gathered']} "
           f"({POD} x the int8 payloads and scales) | {card}")
     return {"rmsnorm": sum(r["rmsnorm"] for r in got), "ranks": got}
+
+
+# ---- slice H, the dry-run over the production meshes: phase 14 ----------
+
+DRY_TOL = 0.01                   # flops: analyzer vs FlopCounterMode
+# phase 14(a)'s cells: Qwen3-1.7B's three shapes on 16 x 16 and the
+# compressed Qwen1.5-0.5B train step on 2 x 16 x 16, each in a process
+# of its own (one fake world per process), all at once
+DRY_CELLS = [("qwen3-1.7b", "train_4k", "single", ()),
+             ("qwen3-1.7b", "prefill_32k", "single", ()),
+             ("qwen3-1.7b", "decode_32k", "single", ()),
+             ("qwen1.5-0.5b", "train_4k", "multi",
+              ("--grad-compress", "--tag", "grad-compress"))]
+
+
+def dry_cells() -> None:
+    """Phase 14(b)'s trace, in a process of its own: phase 13a's three
+    cells (published configs, phase 13a's shapes) on a 1 x 1 mesh over a
+    fake world of one, on meta tensors. Prints their dry-run records as
+    one JSON line."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import init_fake_world, make_test_mesh
+    init_fake_world(1)
+    mesh = make_test_mesh(1, 1, device="cpu")
+    cells = {
+        "train": (QWEN15, ShapeConfig("cell_train", seq_len=TRAIN_SEQ,
+                                      global_batch=TRAIN_BATCH,
+                                      kind="train")),
+        "prefill": (QWEN3, ShapeConfig("cell_prefill", seq_len=PROMPT,
+                                       global_batch=SLOTS, kind="prefill")),
+        "decode": (QWEN3, ShapeConfig(
+            "cell_decode", seq_len=PROMPT + CELL_DECODE_STEPS,
+            global_batch=SLOTS, kind="decode"))}
+    print(json.dumps({k: dryrun.record_cell(get_config(arch), shape, mesh,
+                                            pod_stride=10**9)
+                      for k, (arch, shape) in cells.items()}))
+
+
+def dryrun_phase(card: str, work: Path, dry: dict, cfg3) -> None:
+    """Phase 14: (a) `repro_torch.launch.dryrun` over `DRY_CELLS`, each
+    record's per-rank memory, flops, bytes and its roofline terms under
+    `HW`; (b) phase 13a's cells traced on a 1 x 1 fake world held to what
+    the card measured (`dry`): argument bytes exactly, train and prefill
+    flops within `DRY_TOL` of `FlopCounterMode`, decode's difference
+    equal to the gathered attention's 4 B H hd len L (the paged kernel's
+    work, which `FlopCounterMode` cannot see) within `DRY_TOL`; each
+    cell's roofline bound beside phase 13a's measured time, and the train
+    cell's peak beside the card's."""
+    import torch
+    from repro_torch.launch.dryrun import roofline_terms
+    from repro_torch.launch.mesh import HW
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t = time.perf_counter()
+    procs = []
+    for i, (arch, shape, mesh, extra) in enumerate(DRY_CELLS):
+        out = work / f"dryrun_{i}.jsonl"
+        procs.append((out, subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--mesh", mesh, *extra, "--out",
+             str(out)], env=env, cwd=ROOT, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)))
+    cells_proc = subprocess.Popen(
+        [sys.executable, "-c", "import chip_smoke; chip_smoke.dry_cells()"],
+        env=env, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    recs = []
+    for out, proc in procs:
+        log, _ = proc.communicate(timeout=600)
+        assert proc.returncode == 0, log[-3000:]
+        recs += [json.loads(line) for line in out.read_text().splitlines()]
+    traced, err = cells_proc.communicate(timeout=600)
+    assert cells_proc.returncode == 0, err[-3000:]
+    wall = time.perf_counter() - t
+    print(f"phase 14 HW (repro_torch.launch.mesh): {json.dumps(HW)}; "
+          f"the card's total_memory "
+          f"{torch.cuda.get_device_properties(0).total_memory} | {card}")
+    for r in recs:
+        assert r["ok"], r.get("traceback")
+        m, a = r["memory"], r["analysis"]
+        terms = roofline_terms(a)
+        print(f"phase 14a dry-run {r['arch']} {r['shape']} {r['mesh']} "
+              f"({r['chips']} ranks{', ' + r['tag'] if r['tag'] else ''}):"
+              f" per rank memory {m['total_bytes']} bytes (arguments "
+              f"{m['argument_bytes']}, outputs {m['output_bytes']}, temp "
+              f"{m['temp_bytes']}, aliased {m['alias_bytes']}), flops "
+              f"{a['flops']:.6e}, bytes {a['bytes_accessed']:.6e}, "
+              f"collective bytes {a['collective_bytes']:.6e} (ICI ring "
+              f"{a['ici_ring_bytes']:.6e}, DCN ring "
+              f"{a['dcn_ring_bytes']:.6e}); under HW compute "
+              f"{terms['compute_s'] * 1e3:.3f} ms, memory "
+              f"{terms['memory_s'] * 1e3:.3f} ms, collective "
+              f"{terms['collective_s'] * 1e3:.3f} ms; traced in "
+              f"{r['trace_s']} s")
+        if "pod_gather_bytes" in r:
+            print(f"phase 14a pod all-gather (DCN): "
+                  f"{r['collectives_by_op']['all-gather_dcn']} == "
+                  f"{r['pod_gather_bytes']} bytes by the placements")
+    traced = json.loads(traced.strip().splitlines()[-1])
+    for kind in ("train", "prefill", "decode"):
+        r, c = traced[kind], dry[kind]
+        assert r["ok"], r.get("traceback")
+        a = r["analysis"]
+        assert r["memory"]["argument_bytes"] == c["arg_bytes"], \
+            (kind, r["memory"]["argument_bytes"], c["arg_bytes"])
+        if kind == "decode":
+            want = (4 * SLOTS * cfg3.num_heads * cfg3.head_dim
+                    * c["gathered_len"] * cfg3.num_layers)
+            diff = a["flops"] - c["flops"]
+            ok = abs(diff - want) <= DRY_TOL * want
+            check = (f"analyzer - card {diff:.6e} vs the gathered "
+                     f"attention's {want:.6e}")
+        else:
+            ok = abs(a["flops"] - c["flops"]) <= DRY_TOL * c["flops"]
+            check = f"analyzer {a['flops']:.6e} vs card {c['flops']:.6e}"
+        terms = roofline_terms(a)
+        bound_s = max(terms["compute_s"], terms["memory_s"])
+        peak = (f"; peak {r['memory']['peak_bytes']} bytes traced vs "
+                f"{c['peak_bytes']} on the card" if kind == "train" else "")
+        print(f"phase 14b {kind} cell: argument bytes "
+              f"{r['memory']['argument_bytes']} == {c['arg_bytes']}; flops "
+              f"{check}; roofline bound {bound_s * 1e3:.3f} ms (compute "
+              f"{terms['compute_s'] * 1e3:.3f}, memory "
+              f"{terms['memory_s'] * 1e3:.3f}) vs phase 13a's median "
+              f"{c['median_s'] * 1e3:.3f} ms = {bound_s / c['median_s']:.4f}"
+              f"{peak} | {card}")
+        assert ok, (kind, check)
+    print(f"phase 14 wall time {time.perf_counter() - t:.3f} s (the "
+          f"dry-runs and the 1 x 1 trace in {wall:.3f} s, in parallel)")
 
 
 def main(argv=None) -> int:
@@ -3587,6 +3812,11 @@ def main(argv=None) -> int:
     shutil.rmtree(work, ignore_errors=True)
     print(f"phase 13 wall time {time.perf_counter() - t:.3f} s (13a "
           f"{t_cells:.3f} s)")
+
+    # ---- phase 14: the dry-run over the production meshes -------------
+    work.mkdir(parents=True, exist_ok=True)
+    dryrun_phase(card, work, cells["dry"], get_config(QWEN3))
+    shutil.rmtree(work, ignore_errors=True)
 
     enc = timing["encode (2,10)"]
     print(json.dumps({"kernels": [{

@@ -25,7 +25,11 @@ tensors, or logical-axis tuples.
 from __future__ import annotations
 
 import contextlib
+import functools
 from typing import Any, Callable, Dict, Iterator, Optional, Tuple, Union
+
+import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.configs.base import ModelConfig
 
@@ -79,7 +83,6 @@ def _placements(spec: PartitionSpec, axis_names: Tuple[str, ...]):
     `Replicate()`. Raises where a name is not a mesh axis, where a mesh
     axis appears twice, or where a tuple entry lists axes out of mesh
     order (a DTensor splits a dim over its mesh dims major-first)."""
-    from torch.distributed.tensor import Replicate, Shard
     order = {name: i for i, name in enumerate(axis_names)}
     where: Dict[str, int] = {}
     for dim, entry in enumerate(spec):
@@ -233,15 +236,13 @@ def replicated(mesh) -> NamedSharding:
 # Placing tensors on a mesh
 # --------------------------------------------------------------------------
 
-def _is_dtensor(x) -> bool:
-    from torch.distributed.tensor import DTensor
+def is_dtensor(x) -> bool:
     return isinstance(x, DTensor)
 
 
 def _place_one(x, sharding: NamedSharding):
     """This rank's shard of the whole tensor `x`, as a DTensor: no
     communication (every rank holds the same `x`)."""
-    from torch.distributed.tensor import DTensor, Shard
     mesh = sharding.mesh
     dm = mesh.device_mesh
     if dm is None:
@@ -276,10 +277,9 @@ def local(tree: Any, manual: Tuple[str, ...] = ()) -> Any:
     DTensor dispatch with rules for the kernels). `manual` names axes
     whose shards are this process's own data, as the reference's
     `shard_map(axis_names=...)` region does."""
-    from torch.distributed.tensor import Shard
 
     def one(x):
-        if not _is_dtensor(x):
+        if not is_dtensor(x):
             return x
         dm = x.device_mesh
         for m, pl in enumerate(x.placements):
@@ -303,9 +303,10 @@ def local(tree: Any, manual: Tuple[str, ...] = ()) -> Any:
 # `fn` (`installed_rules`), and `constrain` returns x unchanged when no
 # rules are installed or x is a plain tensor. Every executed path
 # computes on plain tensors (`local` takes them out of the DTensors
-# before a step runs, and every kernel refuses a DTensor), so the call
-# sites in the models act only once DTensors reach model code, with
-# execution over mesh axes larger than one card.
+# before a step runs, and every kernel refuses a DTensor). DTensors
+# reach model code only in the dry-run (`launch/dryrun.py`), which runs
+# a cell's step on meta DTensors; the helpers below (`zeros`,
+# `on_shards`, `on_locals`) serve the models' DTensor paths there.
 
 _RULES: Optional[Dict[str, Axis]] = None
 
@@ -331,13 +332,138 @@ def installed_rules(rules: Optional[Dict[str, Axis]]) -> Iterator[None]:
         set_global_rules(outer)
 
 
+def zeros(shape: Tuple[int, ...], dtype, like, axes: Tuple):
+    """torch.zeros(shape) on `like`'s device; where `like` is a DTensor
+    under installed rules, a DTensor laid out by the logical `axes` on
+    its mesh, each rank holding only its own zero shard."""
+    if _RULES is None or not is_dtensor(like):
+        return torch.zeros(shape, dtype=dtype, device=like.device)
+    dm = like.device_mesh
+    names = dm.mesh_dim_names
+    placements = _placements(spec_for(axes, _RULES, shape, _MeshShape(dm)),
+                             names)
+    local_shape = list(shape)
+    for m, pl in enumerate(placements):
+        if isinstance(pl, Shard):
+            local_shape[pl.dim] = -(-local_shape[pl.dim] // dm.size(m))
+    loc = torch.zeros(local_shape, dtype=dtype,
+                      device=like.to_local().device)
+    return DTensor.from_local(loc, dm, placements, run_check=False,
+                              shape=torch.Size(shape),
+                              stride=contiguous_stride(shape))
+
+
+def contiguous_stride(shape: Tuple[int, ...]) -> Tuple[int, ...]:
+    """The strides of a contiguous tensor of `shape`."""
+    stride, n = [], 1
+    for size in reversed(shape):
+        stride.append(n)
+        n *= max(size, 1)
+    return tuple(reversed(stride))
+
+
+class _MeshShape:
+    """A shape-only mesh (what `spec_for` reads) for a DeviceMesh."""
+
+    def __init__(self, dm):
+        self.axis_names = tuple(dm.mesh_dim_names)
+        self.shape = {n: dm.size(i) for i, n in enumerate(self.axis_names)}
+
+
 def constrain(x, axes: Tuple):
     """x, or for a DTensor under installed rules, x redistributed to the
-    placements of `spec_for(axes, rules)` on its own mesh."""
-    if _RULES is None or not _is_dtensor(x):
+    placements of `spec_for(axes, rules, x.shape)` on its own mesh: a
+    mesh axis that does not divide its dim is dropped (the reference's
+    GSPMD pads such a dim; a DTensor's uneven shards do not survive its
+    reshapes). In the backward a partial gradient is reduced here
+    (DTensor's own backward would carry the partial sums on, and the
+    next op gather its weights for them)."""
+    if _RULES is None or not is_dtensor(x):
         return x
     dm = x.device_mesh
-    placements = _placements(spec_for(axes, _RULES), dm.mesh_dim_names)
-    if tuple(x.placements) == placements:
+    placements = _placements(
+        spec_for(axes, _RULES, tuple(x.shape), _MeshShape(dm)),
+        dm.mesh_dim_names)
+    return _Constrain.apply(x, placements)
+
+
+def _redistributed(x, placements):
+    if tuple(x.placements) == tuple(placements):
         return x
-    return x.redistribute(dm, placements)
+    return x.redistribute(x.device_mesh, placements)
+
+
+class _Constrain(torch.autograd.Function):
+    """Redistribute; the gradient goes back to the input's layout with
+    partial sums reduced (DTensor's own backward keeps a partial
+    gradient partial)."""
+
+    @staticmethod
+    def forward(ctx, x, placements):
+        ctx.back = tuple(Replicate() if p.is_partial() else p
+                         for p in x.placements)
+        return _redistributed(x, placements)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _redistributed(grad, ctx.back), None
+
+
+def _call(fn: Callable, *xs):
+    return fn(*xs)
+
+
+# How `on_shards` calls its function on the local tensors: `_call`, or
+# what a tracer puts here for the length of its trace (the dry-run's
+# analyzer replays repeated calls).
+local_call: Callable = _call
+
+
+def on_shards(fn: Callable, *xs):
+    """fn(*xs); for DTensors laid out alike, fn over each rank's local
+    tensors (through `local_call`), the result laid out as they are. For
+    work that each shard completes on its own (attention over its batch
+    rows and heads), so eager code runs on plain local tensors instead
+    of one DTensor dispatch per op."""
+    if not is_dtensor(xs[0]):
+        return fn(*xs)
+    placements = xs[0].placements
+    if any(p.is_partial() for p in placements):
+        raise ValueError(f"on_shards takes no partial sums: {placements}")
+    return on_locals(functools.partial(local_call, fn), xs,
+                     (placements,) * len(xs), placements)
+
+
+def on_locals(fn: Callable, xs: Tuple, in_placements: Tuple,
+              out_placements, in_grad_placements: Optional[Tuple] = None):
+    """fn over the local tensors of the DTensors `xs`, each first laid out
+    by its entry of `in_placements` (None for an argument that is not a
+    DTensor); the result a DTensor laid out by `out_placements`, and an
+    input's gradient by its entry of `in_grad_placements` where given
+    (`local_map`). The caller's placements must make each rank's shards
+    a whole problem of their own."""
+    from torch.distributed.tensor.experimental import local_map
+    kw = {} if in_grad_placements is None else \
+        {"in_grad_placements": in_grad_placements}
+
+    def on_local(*local_xs):
+        return fn(*(_ContiguousGrad.apply(x) if isinstance(x, torch.Tensor)
+                    and x.requires_grad else x for x in local_xs))
+
+    return local_map(on_local, out_placements=list(out_placements),
+                     in_placements=in_placements,
+                     redistribute_inputs=True, **kw)(*xs)
+
+
+class _ContiguousGrad(torch.autograd.Function):
+    """Identity; its gradient made contiguous. A local gradient leaves
+    `local_map` as a DTensor with contiguous global strides, which its
+    later views assume of the local tensor too."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad.contiguous()

@@ -67,6 +67,8 @@ def rms_norm_op(x: torch.Tensor, scale: torch.Tensor,
     """y = x * rsqrt(mean(x^2, -1) + eps) * scale, in x's dtype."""
     if not isinstance(x, torch.Tensor):
         raise TypeError(f"x must be a torch.Tensor, got {type(x).__name__}")
+    if x.device.type == "meta":
+        return rms_norm_ref(x, scale, eps)
     require_plain("rms_norm_op", x, scale)
     if x.device.type == "cuda":
         return RMSNormFunction.apply(x, scale, eps)

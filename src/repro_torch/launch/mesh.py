@@ -11,6 +11,10 @@ versions have no counterpart (a per-axis region is ordinary code that
 passes the axis's process group to its collectives, `Mesh.group`).
 
 Building a mesh never touches a device or a process group at import.
+The dry-run's production meshes live on a fake world (`init_fake_world`:
+256 or 512 ranks in one process, torch's `fake` backend), whose
+`DeviceMesh` is a `cpu` mesh: the reference's 512 placeholder CPU
+devices. `HW` is the H100's roofline model.
 """
 from __future__ import annotations
 
@@ -69,10 +73,23 @@ def _device_mesh(shape: Dict[str, int], device: str) -> Mesh:
     return Mesh(shape, dm)
 
 
+def init_fake_world(ranks: int) -> None:
+    """Make this process rank 0 of a world of `ranks` ranks on torch's
+    `fake` backend, whose collectives move nothing and return at once: a
+    `DeviceMesh` over it (on "cpu") has every process group of the real
+    mesh, for tracing on meta tensors. A process has one default group,
+    so a fake world needs a process of its own."""
+    # importing the module registers the backend
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=ranks)
+
+
 def make_production_mesh(*, multi_pod: bool = False,
                          device: str = "cuda") -> Mesh:
     """The reference's (16, 16) ("data", "model") mesh, or (2, 16, 16)
-    with "pod": needs a world of 256 or 512 ranks."""
+    with "pod": needs a world of 256 or 512 ranks (the dry-run's fake
+    world, with `device="cpu"`)."""
     shape = {"pod": 2, "data": 16, "model": 16} if multi_pod \
         else {"data": 16, "model": 16}
     need = math.prod(shape.values())
@@ -91,3 +108,23 @@ def make_test_mesh(data: int = 1, model: int = 1, *, pod: int = 0,
     shape: Dict[str, int] = {"pod": pod} if pod else {}
     shape.update(data=data, model=model)
     return _device_mesh(shape, device)
+
+
+# NVIDIA H100 SXM5 80 GB model used by the roofline analysis (per card).
+# The keys are the reference's (its TPU v5e model); every number here is
+# the H100's.
+HW = {
+    # FLOP/s, dense bf16 (no sparsity): NVIDIA H100 SXM5 datasheet
+    "peak_flops_bf16": 989e12,
+    # B/s, HBM3: the same datasheet
+    "hbm_bw": 3.35e12,
+    # B/s per direction, NVLink 4 (the datasheet's 900 GB/s is both
+    # directions); on 8-card nodes a 16-rank axis also crosses nodes
+    "ici_bw": 450e9,
+    # B/s per card across nodes: one 400 Gb/s NDR port per GPU
+    # (assumption, as the reference's own figure is)
+    "dcn_bw": 50e9,
+    # bytes: the card's own `total_memory` (torch.cuda), as
+    # chip_smoke.py phase 14 prints it: an NVIDIA H100 80GB HBM3 at 700 W
+    "hbm_bytes": 85_017_493_504,
+}

@@ -24,7 +24,8 @@ import torch.distributed as dist
 from repro_torch.configs.base import ModelConfig, ShapeConfig, padded_vocab
 from repro_torch.distributed.sharding import (NamedSharding, PartitionSpec,
                                               get_global_rules,
-                                              installed_rules, local,
+                                              installed_rules, is_dtensor,
+                                              local,
                                               make_rules, place, sharding_for,
                                               tree_shardings)
 from repro_torch.launch import specs as specs_lib
@@ -45,8 +46,7 @@ def _mean_grads(model: Model, params: Dict[str, torch.Tensor], batch):
     leaves = [params[k].detach().requires_grad_(True) for k in names]
     live = dict(zip(names, leaves))
     n = next(iter(batch.values())).shape[0]
-    g_sum = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-             for p in leaves]
+    g_sum = [torch.zeros_like(p, dtype=torch.float32) for p in leaves]
     loss_sum = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
     for i in range(n):
         loss, _ = model.loss_fn(live, {k: v[i] for k, v in batch.items()})
@@ -97,7 +97,9 @@ def make_train_step_compressed(model: Model, opt_cfg: adamw.AdamWConfig,
             grads, loss = _mean_grads(model, params, batch)
             grads, new_err = compression.psum_compressed(
                 grads, group, opt_state["err"])
-            dist.all_reduce(loss, group=group)
+            # in place, on a DTensor's local tensor too
+            dist.all_reduce(loss.to_local() if is_dtensor(loss) else loss,
+                            group=group)
             loss = loss / dist.get_world_size(group)
         new_params, new_opt, om = adamw.adamw_update(
             opt_cfg, grads, {k: v for k, v in opt_state.items()
@@ -208,7 +210,9 @@ def build_cell(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
     """Everything needed to run one (arch x shape) cell on a mesh.
 
     Returns dict with: fn, args (meta tensors), in_shardings,
-    out_shardings, model and donate_argnums. PyTorch has no buffer
+    out_shardings, model and donate_argnums, and what `fn` wraps: the
+    plain `step`, its sharding `rules` and its `manual` axes (the
+    dry-run runs `step` on DTensors itself). PyTorch has no buffer
     donation: `donate_argnums` records the reference's (the train state,
     the cache), whose buffers the port's steps replace or update in
     place.
@@ -254,4 +258,5 @@ def build_cell(cfg: ModelConfig, shape: ShapeConfig, mesh, *,
         donate = (2,)            # KV cache / recurrent state
     return {"fn": _on_mesh(step, out_sh, rules, manual), "args": args,
             "in_shardings": in_sh, "out_shardings": out_sh, "model": model,
-            "donate_argnums": donate}
+            "donate_argnums": donate, "step": step, "rules": rules,
+            "manual": manual}

@@ -17,6 +17,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import constrain, is_dtensor
 from repro_torch.kernels.rmsnorm.ops import rms_norm_op
 
 NEG_INF = -1e30
@@ -340,12 +341,24 @@ def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     then log of the summed exponentials). The gold logit is gathered with
     `take_along_dim`; the reference picks it with an iota mask, which
     keeps a vocab-sharded reduction local, and on one device would build
-    an index tensor the size of the logits for the same number."""
+    an index tensor the size of the logits for the same number. A
+    DTensor (the dry-run) takes the reference's mask: DTensor cannot
+    reduce a gather from vocab-sharded logits."""
     logits = logits.float()
     m = logits.amax(dim=-1, keepdim=True).detach()
-    lse = m[..., 0] + torch.log(torch.exp(logits - m).sum(dim=-1))
-    gold = torch.take_along_dim(logits, labels.long()[..., None],
-                                dim=-1)[..., 0]
+    if is_dtensor(logits):
+        # each vocab shard's sums reduced over the rows' own layout
+        rows = ("batch",) + (None,) * (logits.dim() - 2)
+        m = constrain(m, rows + (None,))
+        lse = m[..., 0] + torch.log(constrain(
+            torch.exp(logits - m).sum(dim=-1), rows))
+        iota = torch.arange(logits.shape[-1], device=logits.device)
+        gold = constrain(torch.where(iota == labels.long()[..., None],
+                                     logits, 0.0).sum(dim=-1), rows)
+    else:
+        lse = m[..., 0] + torch.log(torch.exp(logits - m).sum(dim=-1))
+        gold = torch.take_along_dim(logits, labels.long()[..., None],
+                                    dim=-1)[..., 0]
     loss = lse - gold
     if z_loss:
         loss = loss + z_loss * torch.square(lse)

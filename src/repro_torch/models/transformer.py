@@ -17,6 +17,7 @@ attention, so the CPU tests match the reference's model.
 """
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
@@ -25,7 +26,11 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, padded_vocab
-from repro_torch.distributed.sharding import constrain, get_global_rules
+from repro_torch.distributed import sharding
+from repro_torch.distributed.sharding import (Partial, Replicate, Shard,
+                                              constrain, get_global_rules,
+                                              is_dtensor, on_locals,
+                                              on_shards)
 from repro_torch.kernels.paged_attention.ops import paged_decode_attention
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
@@ -144,15 +149,77 @@ def abstract_params(cfg: ModelConfig) -> Dict[str, torch.Tensor]:
 # --------------------------------------------------------------------------
 
 def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """einsum("bsd,dhk->bshk"): (B, S, d) x (d, N, k) -> (B, S, N, k)."""
+    """einsum("bsd,dhk->bshk"): (B, S, d) x (d, N, k) -> (B, S, N, k).
+    DTensors (the dry-run) project on each rank's shards (`_proj_local`)."""
+    if is_dtensor(w):
+        return _proj_local(x, w)
     d, N, k = w.shape
     return (x @ w.reshape(d, N * k)).unflatten(-1, (N, k))
 
 
 def _out_proj(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
-    """einsum("bshk,hkd->bsd")."""
+    """einsum("bshk,hkd->bsd"). DTensors (the dry-run) project on each
+    rank's shards (`_out_proj_local`)."""
+    if is_dtensor(wo):
+        return _out_proj_local(o, wo)
     H, k, d = wo.shape
     return o.flatten(-2) @ wo.reshape(H * k, d)
+
+
+def _proj_local(x, w):
+    """Megatron's column-parallel projection under FSDP, on DTensors: the
+    weight gathered over the mesh dims that split its d (rows of the
+    batch stay split), each rank projecting its rows onto its own heads
+    or head_dim. Its gradients: x's partial over the dims that split
+    the heads, w's over those that split the rows. (DTensor's own
+    propagation cannot keep a head_dim shard through the (N, k)
+    flatten, and picks layouts its views then refuse.)"""
+    px, pw = tuple(x.placements), tuple(w.placements)
+    rows = [isinstance(p, Shard) and p.dim == 0 for p in px]
+    cols = [isinstance(p, Shard) and p.dim in (1, 2) for p in pw]
+    if any(r and c for r, c in zip(rows, cols)):
+        raise ValueError(f"rows {px} and heads {pw} on one mesh dim")
+    R, P = Replicate(), Partial()
+    n = len(px)
+    return on_locals(
+        _proj, (x, w),
+        (tuple(Shard(0) if rows[m] else R for m in range(n)),
+         tuple(pw[m] if cols[m] else R for m in range(n))),
+        tuple(Shard(0) if rows[m] else Shard(pw[m].dim + 1) if cols[m]
+              else R for m in range(n)),
+        in_grad_placements=(
+            tuple(Shard(0) if rows[m] else P if cols[m] else R
+                  for m in range(n)),
+            tuple(pw[m] if cols[m] else P if rows[m] else R
+                  for m in range(n))))
+
+
+def _out_proj_local(o, wo):
+    """Megatron's row-parallel projection under FSDP, on DTensors: each
+    rank contracts its own heads or head_dim (the weight gathered over
+    the dims that split its d), the result a partial sum over the dims
+    that split them; wo's gradient partial over those that split the
+    rows."""
+    po = tuple(o.placements)
+    if any(isinstance(p, Shard) and p.dim == 1 for p in po):
+        raise ValueError(f"an attention output laid out as {po}")
+    rows = [p == Shard(0) for p in po]
+    # o's heads (dim 2) or head_dim (dim 3) are wo's dims 0 or 1
+    inner = [p.dim - 2 if isinstance(p, Shard) and p.dim >= 2 else None
+             for p in po]
+    R, P = Replicate(), Partial()
+    n = len(po)
+    o_pl = tuple(Shard(0) if rows[m] else R if inner[m] is None
+                 else Shard(inner[m] + 2) for m in range(n))
+    wo_pl = tuple(R if inner[m] is None else Shard(inner[m])
+                  for m in range(n))
+    return on_locals(
+        _out_proj, (o, wo), (o_pl, wo_pl),
+        tuple(Shard(0) if rows[m] else R if inner[m] is None else P
+              for m in range(n)),
+        in_grad_placements=(
+            o_pl, tuple(wo_pl[m] if inner[m] is not None
+                        else P if rows[m] else R for m in range(n))))
 
 
 def _qkv(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
@@ -186,11 +253,18 @@ def _attn(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
                                  L.expand_kv(v_cache, H), cache_len,
                                  window=window)
     else:
-        ke, ve = L.expand_kv(k, H), L.expand_kv(v, H)
+        # the expanded kv laid out as q's heads: a DTensor's kv sharded
+        # over head_dim reshards here, not in the repeat's backward
+        ke = constrain(L.expand_kv(k, H), ("batch", None, "heads", None))
+        ve = constrain(L.expand_kv(v, H), ("batch", None, "heads", None))
+        # batch rows and heads attend apart: a DTensor's shards each
+        # run the plain attention on their own (q, k, v)
         if window is not None:
-            out = L.local_chunked_attention(q, ke, ve, window=window)
+            out = on_shards(functools.partial(
+                L.local_chunked_attention, window=window), q, ke, ve)
         else:
-            out = L.chunked_attention(q, ke, ve, causal=True, impl=attn_impl)
+            out = on_shards(functools.partial(
+                L.chunked_attention, causal=True, impl=attn_impl), q, ke, ve)
     return _out_proj(out.to(x.dtype), p["wo"]), (k, v)
 
 
@@ -216,7 +290,9 @@ def _layer(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
     h = L.rms_norm(x, p["ln1"], cfg.rms_eps)
     attn_out, kv = _attn(cfg, p, h, positions, mode=mode, kv_in=kv_in,
                          cache_len=cache_len, attn_impl=attn_impl)
-    x = x + attn_out
+    # reduced here: a DTensor would carry the projection's partial sums
+    # into the norm and the FFN
+    x = constrain(x + attn_out, ("batch", None, None))
     h = L.rms_norm(x, p["ln2"], cfg.rms_eps)
     ffn_out, aux = _ffn(cfg, p, h)
     return constrain(x + ffn_out, ("batch", None, None)), kv, aux
@@ -237,6 +313,53 @@ def _layer_params(lyr: Dict[str, torch.Tensor], i: int):
 # Input embedding / output head (family hooks)
 # --------------------------------------------------------------------------
 
+def embed_tokens(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """table[tokens]. A DTensor table (the dry-run) looks up Megatron's
+    way, on each rank's own vocab rows (`_vocab_parallel`)."""
+    if is_dtensor(table):
+        return _vocab_parallel(table, tokens)
+    return table[tokens.long()]
+
+
+def _vocab_parallel(table, tokens):
+    """The lookup of a DTensor table sharded over its vocab rows on (at
+    most) one mesh dim: the table gathered over its other dims, each rank
+    looks up the ids in its own rows (zero elsewhere) and the result is
+    a partial sum over the vocab dim's ranks. The gradient of each rank's
+    rows is partial over the ranks that split the tokens."""
+    tpl, ipl = tuple(table.placements), tuple(tokens.placements)
+    vocab = [m for m, p in enumerate(tpl) if p == Shard(0)]
+    if len(vocab) > 1 or any(ipl[m] != Replicate() for m in vocab):
+        raise ValueError(f"a lookup of ids {ipl} in a table {tpl}")
+    dm = table.device_mesh
+    rows = -(-table.shape[0] // dm.size(vocab[0])) if vocab else 0
+    v0 = dm.get_local_rank(vocab[0]) * rows if vocab else 0
+
+    def lookup(tab, ids):
+        rel = ids.long() - v0
+        hit = ((rel >= 0) & (rel < tab.shape[0]))[..., None]
+        return torch.where(hit, tab[rel.clamp(0, tab.shape[0] - 1)],
+                           torch.zeros((), dtype=tab.dtype,
+                                       device=tab.device))
+
+    def out(m):
+        if m in vocab:
+            return Partial()
+        return ipl[m]
+
+    def grad(m):
+        if m in vocab:
+            return Shard(0)
+        return Partial() if isinstance(ipl[m], Shard) else Replicate()
+
+    n = len(tpl)
+    return on_locals(
+        lookup, (table, tokens),
+        (tuple(Shard(0) if m in vocab else Replicate() for m in range(n)),
+         ipl), tuple(out(m) for m in range(n)),
+        in_grad_placements=(tuple(grad(m) for m in range(n)), ipl))
+
+
 def embed_inputs(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor]):
     """Returns (x, positions, label_mask_prefix_len)."""
     top, _ = _split_layers(params)
@@ -247,7 +370,7 @@ def embed_inputs(cfg: ModelConfig, params, batch: Dict[str, torch.Tensor]):
         pos = torch.arange(x.shape[1], device=dev)
         x = x + L.sinusoidal_pos_embed(pos, cfg.d_model).to(x.dtype)[None]
         return constrain(x, ("batch", None, None)), pos, 0
-    x = top["embed"][batch["tokens"].long()]
+    x = embed_tokens(top["embed"], batch["tokens"])
     prefix = 0
     if cfg.frontend.kind == "vlm":
         patches = batch["patch_embeds"].to(_dtype(cfg))
@@ -368,7 +491,11 @@ def _gather_pages(pool: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
 
     Returns the logically ordered copy (B, P*ps, K, hd): the plain paged
     read, which the paged decode-attention kernel does without the copy.
-    """
+    A DTensor pool (the dry-run) reads on each rank's own shard: its
+    rows, kv heads and head_dim (`_page_local`)."""
+    if is_dtensor(pool):
+        pl, rows, out = _page_local(pool, 4)
+        return on_locals(_gather_pages, (pool, table), (pl, rows), out)
     B, P, ps, K, hd = pool.shape
     rows = torch.arange(B, device=pool.device)[:, None]
     return pool[rows, table.long()].reshape(B, P * ps, K, hd)
@@ -377,7 +504,13 @@ def _gather_pages(pool: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
 def _scatter_token(pool: torch.Tensor, table: torch.Tensor,
                    pos: torch.Tensor, val: torch.Tensor) -> torch.Tensor:
     """Write val (B, K, hd) at logical position pos into the paged pool,
-    in place; returns the pool."""
+    in place; returns the pool. A DTensor pool (the dry-run) is written
+    on each rank's own shard (`_page_local`)."""
+    if is_dtensor(pool):
+        pl, rows, val_pl = _page_local(pool, 3)
+        on_locals(_scatter_token, (pool, table, pos, val),
+                  (pl, rows, (Replicate(),) * len(pl), val_pl), pl)
+        return pool
     B, P, ps, K, hd = pool.shape
     # (1,) index tensors, not 0-d ones: torch turns a 0-d tensor index
     # into a Python int, a device-to-host copy that waits for the card
@@ -387,6 +520,41 @@ def _scatter_token(pool: torch.Tensor, table: torch.Tensor,
     phys = table[rows, page].long()                      # (B,)
     pool[rows, phys, off] = val.to(pool.dtype)
     return pool
+
+
+def _page_local(pool, ndim: int):
+    """A DTensor pool (B, P, ps, K, hd)'s placements, the block table's
+    that line up with them (rows as the pool's, pages whole) and those of
+    a tensor (B, [positions,] K, hd) of `ndim` dims in the same rows and
+    heads. The pages must be whole on every rank: the table's page ids
+    are global."""
+    pl = tuple(pool.placements)
+    if any(isinstance(p, Shard) and p.dim in (1, 2) for p in pl):
+        raise ValueError(f"a paged cache sharded over its pages ({pl}) "
+                         f"has no local page read or write")
+
+    def moved(p):
+        if isinstance(p, Shard) and p.dim >= 3:
+            return Shard(p.dim - 5 + ndim)
+        return p
+
+    rows = tuple(p if p == Shard(0) else Replicate() for p in pl)
+    return pl, rows, tuple(moved(p) for p in pl)
+
+
+def _grouped_attention(q, k_cache, v_cache, cache_len):
+    """`decode_attention_grouped`. DTensors split over rows or kv heads
+    alone (q's heads in the kv heads' groups) attend on each rank's own
+    shards; split over head_dim (or the cache's positions) they take
+    DTensor's propagation, whose scores sum over the shards."""
+    if is_dtensor(q):
+        pq, pk = tuple(q.placements), tuple(k_cache.placements)
+        if all(a == b and (not isinstance(a, Shard) or a.dim in (0, 2))
+               for a, b in zip(pq, pk)):
+            return on_locals(L.decode_attention_grouped,
+                             (q, k_cache, v_cache, cache_len),
+                             (pq, pk, pk, (Replicate(),) * len(pq)), pq)
+    return L.decode_attention_grouped(q, k_cache, v_cache, cache_len)
 
 
 def decode_step(cfg: ModelConfig, params, batch, cache, *,
@@ -406,7 +574,7 @@ def decode_step(cfg: ModelConfig, params, batch, cache, *,
         x = x + L.sinusoidal_pos_embed(pos[None], cfg.d_model).to(
             x.dtype)[None]
     else:
-        x = top["embed"][batch["token"].long()]
+        x = embed_tokens(top["embed"], batch["token"])
     positions = pos[None]                        # (1,)
     x = constrain(x, ("batch", None, None))
     paged = spec.layout == "paged"
@@ -425,8 +593,10 @@ def decode_step(cfg: ModelConfig, params, batch, cache, *,
         kc, vc = cache["k"][i], cache["v"][i]    # views into the pools
         h = L.rms_norm(x, lp["ln1"], cfg.rms_eps)
         q, k, v = _qkv(cfg, lp, h, positions)
-        if replicate_q:
-            q = constrain(q, ("batch", None, None, None))
+        # q laid out as the cache's heads (the grouped attention splits
+        # H into (K, G)); flash-decoding replicates it instead
+        q = constrain(q, ("batch", None, None, None) if replicate_q
+                      else ("batch", None, "kv_heads", "head_dim"))
         if paged:
             _scatter_token(kc, cache["block_table"], pos, k[:, 0])
             _scatter_token(vc, cache["block_table"], pos, v[:, 0])
@@ -434,7 +604,7 @@ def decode_step(cfg: ModelConfig, params, batch, cache, *,
                 out = paged_decode_attention(q[:, 0], kc, vc, table,
                                              lens)[:, None]
             else:
-                out = L.decode_attention_grouped(
+                out = _grouped_attention(
                     q, constrain(_gather_pages(kc, cache["block_table"]),
                                  kv_axes),
                     constrain(_gather_pages(vc, cache["block_table"]),
@@ -443,9 +613,10 @@ def decode_step(cfg: ModelConfig, params, batch, cache, *,
             idx = pos.long().reshape(1)
             kc.index_copy_(1, idx, k.to(kc.dtype))
             vc.index_copy_(1, idx, v.to(vc.dtype))
-            out = L.decode_attention_grouped(q, constrain(kc, kv_axes),
-                                             constrain(vc, kv_axes), pos + 1)
-        x = x + _out_proj(out.to(x.dtype), lp["wo"])
+            out = _grouped_attention(q, constrain(kc, kv_axes),
+                                     constrain(vc, kv_axes), pos + 1)
+        x = constrain(x + _out_proj(out.to(x.dtype), lp["wo"]),
+                      ("batch", None, None))
         h = L.rms_norm(x, lp["ln2"], cfg.rms_eps)
         ffn_out, _ = _ffn(cfg, lp, h)
         x = constrain(x + ffn_out, ("batch", None, None))
@@ -466,7 +637,8 @@ def prefill(cfg: ModelConfig, params, batch, *, spec: CacheSpec,
     K, hd, nl = cfg.num_kv_heads, cfg.head_dim, cfg.num_layers
     T = spec.max_len if spec.layout == "contiguous" else \
         spec.num_pages * spec.page_size
-    ks = torch.zeros((nl, B, T, K, hd), dtype=x.dtype, device=x.device)
+    kv_axes = ("layers", "batch", "kv_seq", "kv_heads", "head_dim")
+    ks = sharding.zeros((nl, B, T, K, hd), x.dtype, x, kv_axes)
     vs = torch.zeros_like(ks)
     for i in range(nl):
         x, (k, v), _ = _layer(cfg, _layer_params(lyr, i), x, positions,

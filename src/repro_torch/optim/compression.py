@@ -15,10 +15,12 @@ intra-pod reductions stay full precision.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 import torch
 import torch.distributed as dist
+
+from repro_torch.distributed.sharding import is_dtensor
 
 Tree = Dict[str, torch.Tensor]
 
@@ -43,6 +45,22 @@ def compress_decompress(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return xhat, x - xhat
 
 
+def all_gather(x: torch.Tensor, group) -> List[torch.Tensor]:
+    """Every rank's `x` over `group`, in rank order. A DTensor (the
+    dry-run's per-pod region, on the mesh without the pod axis) gathers
+    its local shard: the ranks of a pod group hold the same shard of
+    their own pods' tensors."""
+    if is_dtensor(x):
+        from torch.distributed.tensor import DTensor
+        return [DTensor.from_local(part, x.device_mesh, x.placements,
+                                   run_check=False, shape=x.shape,
+                                   stride=x.stride())
+                for part in all_gather(x.to_local(), group)]
+    out = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(out, x, group=group)
+    return out
+
+
 def psum_compressed(grads: Tree, group, errors: Tree) -> Tuple[Tree, Tree]:
     """Error-feedback compressed mean over the ranks of `group` (each
     holding its pod's gradients). Exchanges the int8 payloads and one
@@ -55,15 +73,25 @@ def psum_compressed(grads: Tree, group, errors: Tree) -> Tuple[Tree, Tree]:
         g = grads[k].to(torch.float32) + errors[k]        # error feedback
         q, s = quantize_int8(g)
         new_err[k] = g - dequantize(q, s)
-        qs = [torch.empty_like(q) for _ in range(n)]
-        ss = [torch.empty_like(s.reshape(1)) for _ in range(n)]
-        dist.all_gather(qs, q, group=group)               # (n, ...) int8
-        dist.all_gather(ss, s.reshape(1), group=group)    # (n,) f32
-        total = torch.tensordot(torch.cat(ss),
-                                torch.stack(qs).to(torch.float32),
-                                dims=([0], [0]))
-        mean[k] = total / n
+        qs = all_gather(q, group)                         # (n, ...) int8
+        ss = all_gather(s.reshape(1), group)              # (n,) f32
+        mean[k] = combine(ss, qs) / n
     return mean, new_err
+
+
+def combine(ss: List[torch.Tensor], qs: List[torch.Tensor]) -> torch.Tensor:
+    """sum_i s_i * q_i in f32: the reference's `tensordot` over the
+    gathered axis. DTensors (every pod's copy of one shard) combine their
+    local tensors, which line up element for element."""
+    if is_dtensor(qs[0]):
+        from torch.distributed.tensor import DTensor
+        q = qs[0]
+        return DTensor.from_local(
+            combine([x.to_local() for x in ss], [x.to_local() for x in qs]),
+            q.device_mesh, q.placements, run_check=False, shape=q.shape,
+            stride=q.stride())
+    return torch.tensordot(torch.cat(ss), torch.stack(qs).to(torch.float32),
+                           dims=([0], [0]))
 
 
 def dcn_bytes_per_step(params, *, compressed: bool) -> int:
