@@ -107,17 +107,22 @@ points:
   all-gather's wall time and bytes beside `dcn_bytes_per_step`;
 - the dry-run over the production meshes (phase 14): (a)
   `repro_torch.launch.dryrun` for Qwen3-1.7B's train_4k, prefill_32k
-  and decode_32k cells on 16 x 16 and Qwen1.5-0.5B's train_4k with
-  `--grad-compress` on 2 x 16 x 16, each over a fake world of 256 / 512
-  ranks in a process of its own, printing each record's per-rank
+  and decode_32k cells on 16 x 16, Qwen1.5-0.5B's train_4k with
+  `--grad-compress` on 2 x 16 x 16, Qwen1.5-MoE-A2.7B's train_4k on 2 x
+  16 x 16, RWKV6-3B's long_500k, RecurrentGemma-2B's decode_32k,
+  MusicGen-large's train_4k and Qwen3-14B's decode_32k (its 40 heads
+  padded to 48 over 16 ranks) on 16 x 16, each over a fake world of 256
+  / 512 ranks in a process of its own, printing each record's per-rank
   memory, flops, bytes, collectives and roofline terms under `HW`; (b)
-  phase 13a's three cells traced on a 1 x 1 fake world on meta tensors
-  and held to the card: argument bytes equal to the arguments 13a
-  built, train and prefill flops within 1% of `FlopCounterMode` over one
-  more step of the cell, the decode's difference equal to the gathered
-  attention's 4 B H hd len L (the paged kernel's work) within 1%; each
-  cell's roofline bound beside 13a's measured time, and the train
-  cell's traced peak beside the card's.
+  phase 13a's three cells and phase 12's three prefills and
+  Qwen1.5-MoE's decode step (their phases' shapes) traced on a 1 x 1
+  fake world on meta tensors and held to the card: argument bytes equal
+  to the arguments the card built, train and prefill flops within 1% of
+  `FlopCounterMode` over one more call of the same path, a decode's
+  difference equal to the gathered attention's 4 B H hd len L (the
+  paged kernel's work) within 1%; each cell's roofline bound beside its
+  phase's measured time, and the train cell's traced peak beside the
+  card's.
 
 Every phase asserts; any failure exits non-zero. Prints timing lines,
 one `kernels` JSON line and, last, `{"ok": true, "device": {...}}`.
@@ -2338,10 +2343,25 @@ def moe_serve(dev, card, cfg) -> dict:
           f"experts of {cfg.num_layers * m.num_experts} at {expert_bytes} "
           f"bytes, valid KV); median at {100 * med_b / (med * 1e3):.2f}% "
           f"of it | {card}")
-    del params
+    # phase 14(b)'s card side: one more prefill and one decode step of
+    # the dry-run's own path (pages of 256), counted
+    model = build_model(cfg)
+    dry = {"moe_prefill": _counted(
+        dev, lambda: model.prefill(params, {"tokens": dev_prompts},
+                                   max_len=PROMPT),
+        (params, {"tokens": dev_prompts}), [st.prefill_seconds])}
+    cache = model.init_cache(SLOTS, MOE_MAX_LEN, device=dev)
+    tok = dev_prompts[:, :1]
+    dry["moe_decode"] = _counted(
+        dev, lambda: model.decode_step(params, {"token": tok}, cache),
+        (params, {"token": tok}, cache), secs)
+    dry["moe_decode"]["gathered_flops"] = (
+        4 * SLOTS * cfg.num_heads * cfg.head_dim * cfg.num_layers
+        * cache["k"].shape[2] * cache["k"].shape[3])
+    del params, cache
     torch.cuda.empty_cache()
     return {"launches": launches, "paged": pa_timing, "pa_err": pa_err,
-            "dropped": dropped}
+            "dropped": dropped, "dry": dry}
 
 
 def rwkv_prefill_flops(cfg, B: int, S: int, chunk: int = 32) -> int:
@@ -2511,9 +2531,13 @@ def rwkv_phase(dev, work, card, cfg) -> dict:
           f"{step_times(secs)} over {len(secs)} | bytes each step reads "
           f"and writes at 3.35 TB/s: {step_bytes} = {s_b:.3f} ms; median "
           f"at {100 * s_b / (med * 1e3):.2f}% of it | {card}")
-    del params, state
+    del state
+    dry = {"rwkv_prefill": _counted(
+        dev, lambda: model.prefill(params, {"tokens": prompts}),
+        (params, {"tokens": prompts}), [prefill_s])}
+    del params
     torch.cuda.empty_cache()
-    return {"rmsnorm": rms, "gf": gf_save + gf_restore}
+    return {"rmsnorm": rms, "gf": gf_save + gf_restore, "dry": dry}
 
 
 def rgemma_prefill_flops(cfg, B: int, S: int) -> int:
@@ -2660,13 +2684,17 @@ def rgemma_phase(dev, card, cfg) -> dict:
           f"3.35 TB/s: {step_bytes} = {s_b:.3f} ms (weights, the full rings,"
           f" recurrent state read and written); median at "
           f"{100 * s_b / (med * 1e3):.2f}% of it | {card}")
-    del params, state
+    del state
+    dry = {"rgemma_prefill": _counted(
+        dev, lambda: model.prefill(params, {"tokens": prompts}),
+        (params, {"tokens": prompts}), [prefill_s])}
+    del params
     torch.cuda.empty_cache()
     rms_d = rms_at(dev, [(REC_BATCH, RGEMMA_PROMPT, cfg.d_model),
                          (REC_BATCH, RWKV_PROMPT, cfg.d_model),
                          (REC_BATCH, 1, cfg.d_model)], card,
                    f"d={cfg.d_model}")
-    return {"rmsnorm": rms, "rms_d2560": rms_d}
+    return {"rmsnorm": rms, "rms_d2560": rms_d, "dry": dry}
 
 
 def published_model_configs() -> dict:
@@ -2733,7 +2761,8 @@ def models_phase(dev, work, card, cfgs=None) -> dict:
           f"{a['launches']['rmsnorm']}, (b) {b['rmsnorm']}, (c) "
           f"{c['rmsnorm']}); wall time {wall:.3f} s")
     return {"launches": launches, "paged": a["paged"],
-            "pa_err": a["pa_err"], "rms_d2560": c["rms_d2560"]}
+            "pa_err": a["pa_err"], "rms_d2560": c["rms_d2560"],
+            "dry": {**a["dry"], **b["dry"], **c["dry"]}}
 
 
 # ---- slice G, the mesh and the compressed step: phase 13 -----------------
@@ -2981,7 +3010,9 @@ def cells_phase(dev, card: str, cfg15, cfg3) -> dict:
     dry["decode"] = _counted(
         dev, lambda: model.decode_step(params, {"token": tok}, last),
         (params, {"token": tok}, last), dec_s)
-    dry["decode"]["gathered_len"] = int(P * ps)
+    dry["decode"]["gathered_flops"] = (4 * SLOTS * cfg3.num_heads
+                                       * cfg3.head_dim * int(P * ps)
+                                       * cfg3.num_layers)
     # the cell's DTensor edge alone (host work, no device op): what a
     # step of fn adds around decode_step, `place` of its token and its
     # results and `local` of its arguments and its token
@@ -3339,19 +3370,26 @@ def pod_phase(dev, card: str, work: Path, cfg15, ref: dict) -> dict:
 # ---- slice H, the dry-run over the production meshes: phase 14 ----------
 
 DRY_TOL = 0.01                   # flops: analyzer vs FlopCounterMode
-# phase 14(a)'s cells: Qwen3-1.7B's three shapes on 16 x 16 and the
-# compressed Qwen1.5-0.5B train step on 2 x 16 x 16, each in a process
+# phase 14(a)'s cells: Qwen3-1.7B's three shapes on 16 x 16, the
+# compressed Qwen1.5-0.5B train step on 2 x 16 x 16 and a cell of each
+# other family (Qwen3-14B's padded heads among them), each in a process
 # of its own (one fake world per process), all at once
 DRY_CELLS = [("qwen3-1.7b", "train_4k", "single", ()),
              ("qwen3-1.7b", "prefill_32k", "single", ()),
              ("qwen3-1.7b", "decode_32k", "single", ()),
              ("qwen1.5-0.5b", "train_4k", "multi",
-              ("--grad-compress", "--tag", "grad-compress"))]
+              ("--grad-compress", "--tag", "grad-compress")),
+             ("qwen2-moe-a2.7b", "train_4k", "multi", ()),
+             ("rwkv6-3b", "long_500k", "single", ()),
+             ("recurrentgemma-2b", "decode_32k", "single", ()),
+             ("musicgen-large", "train_4k", "single", ()),
+             ("qwen3-14b", "decode_32k", "single", ())]
 
 
 def dry_cells() -> None:
     """Phase 14(b)'s trace, in a process of its own: phase 13a's three
-    cells (published configs, phase 13a's shapes) on a 1 x 1 mesh over a
+    cells and phase 12's three prefills and Qwen1.5-MoE's decode step
+    (published configs, those phases' shapes) on a 1 x 1 mesh over a
     fake world of one, on meta tensors. Prints their dry-run records as
     one JSON line."""
     sys.path.insert(0, str(ROOT / "src"))
@@ -3368,22 +3406,35 @@ def dry_cells() -> None:
                                        global_batch=SLOTS, kind="prefill")),
         "decode": (QWEN3, ShapeConfig(
             "cell_decode", seq_len=PROMPT + CELL_DECODE_STEPS,
-            global_batch=SLOTS, kind="decode"))}
+            global_batch=SLOTS, kind="decode")),
+        "moe_prefill": (QWEN_MOE, ShapeConfig(
+            "moe_prefill", seq_len=PROMPT, global_batch=SLOTS,
+            kind="prefill")),
+        "moe_decode": (QWEN_MOE, ShapeConfig(
+            "moe_decode", seq_len=MOE_MAX_LEN, global_batch=SLOTS,
+            kind="decode")),
+        "rwkv_prefill": (RWKV6, ShapeConfig(
+            "rwkv_prefill", seq_len=RWKV_PROMPT, global_batch=REC_BATCH,
+            kind="prefill")),
+        "rgemma_prefill": (RGEMMA, ShapeConfig(
+            "rgemma_prefill", seq_len=RGEMMA_PROMPT, global_batch=REC_BATCH,
+            kind="prefill"))}
     print(json.dumps({k: dryrun.record_cell(get_config(arch), shape, mesh,
                                             pod_stride=10**9)
                       for k, (arch, shape) in cells.items()}))
 
 
-def dryrun_phase(card: str, work: Path, dry: dict, cfg3) -> None:
+def dryrun_phase(card: str, work: Path, dry: dict) -> None:
     """Phase 14: (a) `repro_torch.launch.dryrun` over `DRY_CELLS`, each
     record's per-rank memory, flops, bytes and its roofline terms under
-    `HW`; (b) phase 13a's cells traced on a 1 x 1 fake world held to what
-    the card measured (`dry`): argument bytes exactly, train and prefill
-    flops within `DRY_TOL` of `FlopCounterMode`, decode's difference
-    equal to the gathered attention's 4 B H hd len L (the paged kernel's
-    work, which `FlopCounterMode` cannot see) within `DRY_TOL`; each
-    cell's roofline bound beside phase 13a's measured time, and the train
-    cell's peak beside the card's."""
+    `HW`; (b) phase 13a's cells and phase 12's prefills and MoE decode
+    step traced on a 1 x 1 fake world held to what the card measured
+    (`dry`): argument bytes exactly, train and prefill flops within
+    `DRY_TOL` of `FlopCounterMode`, a decode's difference equal to the
+    gathered attention's 4 B H hd len L (the paged kernel's work, which
+    `FlopCounterMode` cannot see; `gathered_flops`) within `DRY_TOL`;
+    each cell's roofline bound beside its phase's measured time, and the
+    train cell's peak beside the card's."""
     import torch
     from repro_torch.launch.dryrun import roofline_terms
     from repro_torch.launch.mesh import HW
@@ -3434,15 +3485,15 @@ def dryrun_phase(card: str, work: Path, dry: dict, cfg3) -> None:
                   f"{r['collectives_by_op']['all-gather_dcn']} == "
                   f"{r['pod_gather_bytes']} bytes by the placements")
     traced = json.loads(traced.strip().splitlines()[-1])
-    for kind in ("train", "prefill", "decode"):
+    assert set(traced) == set(dry), (sorted(traced), sorted(dry))
+    for kind in traced:
         r, c = traced[kind], dry[kind]
         assert r["ok"], r.get("traceback")
         a = r["analysis"]
         assert r["memory"]["argument_bytes"] == c["arg_bytes"], \
             (kind, r["memory"]["argument_bytes"], c["arg_bytes"])
-        if kind == "decode":
-            want = (4 * SLOTS * cfg3.num_heads * cfg3.head_dim
-                    * c["gathered_len"] * cfg3.num_layers)
+        if "gathered_flops" in c:
+            want = c["gathered_flops"]
             diff = a["flops"] - c["flops"]
             ok = abs(diff - want) <= DRY_TOL * want
             check = (f"analyzer - card {diff:.6e} vs the gathered "
@@ -3454,11 +3505,11 @@ def dryrun_phase(card: str, work: Path, dry: dict, cfg3) -> None:
         bound_s = max(terms["compute_s"], terms["memory_s"])
         peak = (f"; peak {r['memory']['peak_bytes']} bytes traced vs "
                 f"{c['peak_bytes']} on the card" if kind == "train" else "")
-        print(f"phase 14b {kind} cell: argument bytes "
+        print(f"phase 14b {kind}: argument bytes "
               f"{r['memory']['argument_bytes']} == {c['arg_bytes']}; flops "
               f"{check}; roofline bound {bound_s * 1e3:.3f} ms (compute "
               f"{terms['compute_s'] * 1e3:.3f}, memory "
-              f"{terms['memory_s'] * 1e3:.3f}) vs phase 13a's median "
+              f"{terms['memory_s'] * 1e3:.3f}) vs its phase's median "
               f"{c['median_s'] * 1e3:.3f} ms = {bound_s / c['median_s']:.4f}"
               f"{peak} | {card}")
         assert ok, (kind, check)
@@ -3815,7 +3866,7 @@ def main(argv=None) -> int:
 
     # ---- phase 14: the dry-run over the production meshes -------------
     work.mkdir(parents=True, exist_ok=True)
-    dryrun_phase(card, work, cells["dry"], get_config(QWEN3))
+    dryrun_phase(card, work, {**cells["dry"], **models["dry"]})
     shutil.rmtree(work, ignore_errors=True)
 
     enc = timing["encode (2,10)"]

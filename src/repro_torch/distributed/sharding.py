@@ -353,6 +353,14 @@ def zeros(shape: Tuple[int, ...], dtype, like, axes: Tuple):
                               stride=contiguous_stride(shape))
 
 
+def zeros_tree(tree: Any, like, axes: Any) -> Any:
+    """`zeros` for each leaf of `tree` (tensors, meta ones included: their
+    shapes and dtypes), laid out by the matching logical axes of `axes`:
+    a model's initial state beside a DTensor input `like`."""
+    return tree_map(lambda t, ax: zeros(tuple(t.shape), t.dtype, like, ax),
+                    tree, axes)
+
+
 def contiguous_stride(shape: Tuple[int, ...]) -> Tuple[int, ...]:
     """The strides of a contiguous tensor of `shape`."""
     stride, n = [], 1
@@ -372,12 +380,17 @@ class _MeshShape:
 
 def constrain(x, axes: Tuple):
     """x, or for a DTensor under installed rules, x redistributed to the
-    placements of `spec_for(axes, rules, x.shape)` on its own mesh: a
-    mesh axis that does not divide its dim is dropped (the reference's
-    GSPMD pads such a dim; a DTensor's uneven shards do not survive its
-    reshapes). In the backward a partial gradient is reduced here
-    (DTensor's own backward would carry the partial sums on, and the
-    next op gather its weights for them)."""
+    placements of `spec_for(axes, rules, x.shape)` on its own mesh. A
+    mesh axis that does not divide its dim is dropped here: a DTensor's
+    uneven shards do not survive its reshapes. The reference's GSPMD
+    pads such a dim instead, ceil(n / size) per rank; the models pad it
+    themselves where it splits their work (attention heads, RWKV6's
+    heads, MoE experts): the shard-local code takes each rank's
+    zero-padded part (`rank_split`, `take_padded`, with the layout
+    `wanted` by the axes), and the padding is cut off where the heads
+    or experts are summed out. In the backward a partial gradient is
+    reduced here (DTensor's own backward would carry the partial sums
+    on, and the next op gather its weights for them)."""
     if _RULES is None or not is_dtensor(x):
         return x
     dm = x.device_mesh
@@ -385,6 +398,35 @@ def constrain(x, axes: Tuple):
         spec_for(axes, _RULES, tuple(x.shape), _MeshShape(dm)),
         dm.mesh_dim_names)
     return _Constrain.apply(x, placements)
+
+
+def wanted(axes: Tuple, dm):
+    """The placements on DeviceMesh `dm` of a tensor laid out by the
+    logical `axes` under the installed rules, a mesh axis kept where it
+    does not divide its dim (GSPMD's padded layout; see `constrain`)."""
+    return _placements(spec_for(axes, _RULES or {}), dm.mesh_dim_names)
+
+
+def rank_split(n: int, dm, m: int) -> Tuple[int, int]:
+    """A dim of `n` split over mesh dim `m` of `dm` as GSPMD splits it:
+    (ceil(n / size) per rank, this rank's first index). The last ranks'
+    parts run past `n` where the size does not divide it."""
+    per = -(-n // dm.size(m))
+    return per, dm.get_local_rank(m) * per
+
+
+def take_padded(t: torch.Tensor, dim: int, start: int,
+                count: int) -> torch.Tensor:
+    """t[start:start + count] along `dim`, zeros past t's end: one
+    rank's part of a dim that GSPMD pads."""
+    n = t.shape[dim]
+    lo = min(start, n)
+    part = t.narrow(dim, lo, max(0, min(count, n - lo)))
+    short = count - part.shape[dim]
+    if short:
+        part = torch.cat([part, part.new_zeros(
+            part.shape[:dim] + (short,) + part.shape[dim + 1:])], dim=dim)
+    return part
 
 
 def _redistributed(x, placements):
@@ -440,8 +482,9 @@ def on_locals(fn: Callable, xs: Tuple, in_placements: Tuple,
     by its entry of `in_placements` (None for an argument that is not a
     DTensor); the result a DTensor laid out by `out_placements`, and an
     input's gradient by its entry of `in_grad_placements` where given
-    (`local_map`). The caller's placements must make each rank's shards
-    a whole problem of their own."""
+    (`local_map`); a tuple of such layouts for a function of several
+    results. The caller's placements must make each rank's shards a
+    whole problem of their own."""
     from torch.distributed.tensor.experimental import local_map
     kw = {} if in_grad_placements is None else \
         {"in_grad_placements": in_grad_placements}
@@ -450,7 +493,10 @@ def on_locals(fn: Callable, xs: Tuple, in_placements: Tuple,
         return fn(*(_ContiguousGrad.apply(x) if isinstance(x, torch.Tensor)
                     and x.requires_grad else x for x in local_xs))
 
-    return local_map(on_local, out_placements=list(out_placements),
+    several = bool(out_placements) and isinstance(out_placements[0],
+                                                  (tuple, list))
+    return local_map(on_local, out_placements=tuple(out_placements)
+                     if several else list(out_placements),
                      in_placements=in_placements,
                      redistribute_inputs=True, **kw)(*xs)
 

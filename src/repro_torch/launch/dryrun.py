@@ -14,8 +14,12 @@ reference's jit does. This process is rank 0.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --all --jobs 8
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-1.7b \\
       --mesh single
+
+`--jobs N` traces N cells at once, each in a process of its own (one
+fake world per process), their records appended to `--out` in cell order.
 """
 from __future__ import annotations
 
@@ -302,6 +306,86 @@ def cells(arch_filter=None, shape_filter=None):
             yield arch, shape.name
 
 
+def _done(out: Path) -> set:
+    """(arch, shape, mesh, tag) of the cells `out` records as ok."""
+    done = set()
+    if out.exists():
+        for line in out.read_text().splitlines():
+            try:
+                r = json.loads(line)
+                if r.get("ok"):
+                    done.add((r["arch"], r["shape"], r["mesh"],
+                              r.get("tag", "")))
+            except json.JSONDecodeError:
+                pass
+    return done
+
+
+def _cell_flags(args) -> list:
+    """The command-line flags of one cell's child process, as given."""
+    flags = ["--kv-layout", args.kv_layout, "--attn-impl", args.attn_impl,
+             "--wkv-impl", args.wkv_impl, "--tag", args.tag]
+    if args.expert_sharding:
+        flags += ["--expert-sharding", args.expert_sharding]
+    if args.microbatches:
+        flags += ["--microbatches", str(args.microbatches)]
+    if args.grad_compress:
+        flags.append("--grad-compress")
+    if args.flash_decode:
+        flags.append("--flash-decode")
+    return flags
+
+
+def _run_jobs(args, todo) -> int:
+    """Every (cell, mesh) in a child process of its own, `args.jobs` at
+    once, each writing a part file; the parts appended to `args.out` in
+    cell order. Returns the number of failed cells."""
+    from concurrent.futures import ThreadPoolExecutor
+    out = Path(args.out)
+    out.parent.mkdir(parents=True, exist_ok=True)
+    meshes = ("single", "multi") if args.mesh == "both" else (args.mesh,)
+    done = _done(out) if args.skip_existing else set()
+    jobs = [(m, arch, shape) for m in meshes for arch, shape in todo
+            if (arch, shape, MESHES[m == "multi"][0], args.tag) not in done]
+
+    def one(i):
+        mesh, arch, shape = jobs[i]
+        part = out.with_name(f"{out.name}.{i}.part")
+        part.unlink(missing_ok=True)
+        log = subprocess.run(
+            [sys.executable, "-m", __spec__.name, "--arch", arch, "--shape",
+             shape, "--mesh", mesh, "--out", str(part), *_cell_flags(args)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True).stdout
+        print("".join(line + "\n" for line in log.splitlines()
+                      if line.startswith(("[run", "[skip", "   "))), end="",
+              flush=True)
+        lines = part.read_text().splitlines() if part.exists() else []
+        part.unlink(missing_ok=True)
+        return lines
+
+    t0 = time.time()
+    with ThreadPoolExecutor(args.jobs) as pool:
+        parts = list(pool.map(one, range(len(jobs))))
+    n_fail = 0
+    with out.open("a") as f:
+        for mesh in meshes:
+            n_ok = n_bad = 0
+            for (m, _, _), lines in zip(jobs, parts):
+                if m != mesh:
+                    continue
+                for line in lines:
+                    f.write(line + "\n")
+                ok = bool(lines) and json.loads(lines[-1]).get("ok")
+                n_ok, n_bad = n_ok + ok, n_bad + (not ok)
+            name = MESHES[mesh == "multi"][0]
+            print(f"done: {n_ok} ok, {n_bad} failed ({name}) -> {out}")
+            n_fail += n_bad
+    print(f"{len(jobs)} cells in {time.time() - t0:.1f} s, {args.jobs} at "
+          f"once")
+    return n_fail
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default=None)
@@ -326,12 +410,18 @@ def main(argv=None) -> None:
                          "kv_heads < TP (flash-decoding style)")
     ap.add_argument("--tag", default="")
     ap.add_argument("--skip-existing", action="store_true")
+    ap.add_argument("--jobs", type=int, default=1,
+                    help="cells traced at once, one process each")
     argv = sys.argv[1:] if argv is None else list(argv)
     args = ap.parse_args(argv)
 
     todo = list(cells(args.arch, args.shape))
     if not todo:
         raise SystemExit(f"no cells match arch={args.arch} shape={args.shape}")
+    if args.jobs > 1:
+        if _run_jobs(args, todo):
+            raise SystemExit(1)
+        return
     if args.mesh == "both":
         # one fake world per process: each mesh runs in a child of its own
         rcs = [subprocess.run([sys.executable, "-m", __spec__.name, *argv,
@@ -345,16 +435,7 @@ def main(argv=None) -> None:
 
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
-    done = set()
-    if args.skip_existing and out.exists():
-        for line in out.read_text().splitlines():
-            try:
-                r = json.loads(line)
-                if r.get("ok"):
-                    done.add((r["arch"], r["shape"], r["mesh"],
-                              r.get("tag", "")))
-            except json.JSONDecodeError:
-                pass
+    done = _done(out) if args.skip_existing else set()
 
     init_fake_world(ranks)
     n_ok = n_fail = 0

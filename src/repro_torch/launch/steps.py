@@ -23,10 +23,11 @@ import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig, padded_vocab
 from repro_torch.distributed.sharding import (NamedSharding, PartitionSpec,
+                                              Replicate, Shard,
                                               get_global_rules,
                                               installed_rules, is_dtensor,
-                                              local,
-                                              make_rules, place, sharding_for,
+                                              local, make_rules, on_locals,
+                                              place, sharding_for,
                                               tree_shardings)
 from repro_torch.launch import specs as specs_lib
 from repro_torch.models.registry import Model, build_model
@@ -41,7 +42,9 @@ def _mean_grads(model: Model, params: Dict[str, torch.Tensor], batch):
     """(f32 gradients, loss), each the mean over the microbatches of the
     batch's leading dim. Each microbatch's gradients are taken with
     `torch.autograd.grad` and summed in f32 (a Python loop where the
-    reference scans), so activation memory stays one microbatch deep."""
+    reference scans), so activation memory stays one microbatch deep. A
+    leaf the loss does not use (MusicGen's token embedding: its frontend
+    embeds frames) gets a zero gradient, as `jax.grad` gives it."""
     names = sorted(params)
     leaves = [params[k].detach().requires_grad_(True) for k in names]
     live = dict(zip(names, leaves))
@@ -50,7 +53,7 @@ def _mean_grads(model: Model, params: Dict[str, torch.Tensor], batch):
     loss_sum = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
     for i in range(n):
         loss, _ = model.loss_fn(live, {k: v[i] for k, v in batch.items()})
-        grads = torch.autograd.grad(loss, leaves)
+        grads = torch.autograd.grad(loss, leaves, materialize_grads=True)
         for acc, g in zip(g_sum, grads):
             acc.add_(g.float())
         loss_sum = loss_sum + loss.detach()
@@ -152,9 +155,34 @@ def make_decode_step(model: Model):
     def decode_step(params, batch, cache):
         logits, new_cache = model.decode_step(params, batch, cache)
         # greedy sampling: (B,1,V) -> (B,1), audio (B,1,C,V) -> (B,1,C)
-        next_tok = torch.argmax(logits, dim=-1)
+        next_tok = _greedy(logits)
         return next_tok.to(torch.int32), new_cache
     return decode_step
+
+
+def _greedy(logits: torch.Tensor) -> torch.Tensor:
+    """argmax over the last dim. A DTensor's split over it takes each
+    rank's best of its own shard, then the best of the ranks' (DTensor's
+    own argmax mis-gathers where no other dim is split: a batch of one)."""
+    pl = tuple(logits.placements) if is_dtensor(logits) else ()
+    split = [m for m, p in enumerate(pl) if p == Shard(logits.dim() - 1)]
+    if not split:
+        return torch.argmax(logits, dim=-1)
+    if len(split) > 1 or any(p.is_partial() for p in pl):
+        raise ValueError(f"greedy tokens of logits laid out as {pl}")
+    (m,) = split
+    dm = logits.device_mesh
+    start = dm.get_local_rank(m) * logits.to_local().shape[-1]
+
+    def best(x):
+        val, idx = x.max(dim=-1, keepdim=True)
+        return val, idx + start
+
+    val, idx = on_locals(best, (logits,), (pl,), (pl, pl))
+    whole = tuple(Replicate() if i == m else p for i, p in enumerate(pl))
+    val, idx = val.redistribute(dm, whole), idx.redistribute(dm, whole)
+    return torch.gather(idx, -1, torch.argmax(val, dim=-1, keepdim=True)
+                        )[..., 0]
 
 
 def serve_shardings(model: Model, mesh, shape: ShapeConfig, *,

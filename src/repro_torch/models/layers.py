@@ -11,13 +11,14 @@ computes them outside any Pallas kernel.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed.sharding import constrain, is_dtensor
+from repro_torch.distributed.sharding import constrain, is_dtensor, on_locals
 from repro_torch.kernels.rmsnorm.ops import rms_norm_op
 
 NEG_INF = -1e30
@@ -120,10 +121,18 @@ def sinusoidal_pos_embed(positions: torch.Tensor, dim: int) -> torch.Tensor:
 # --------------------------------------------------------------------------
 
 def expand_kv(k: torch.Tensor, num_heads: int) -> torch.Tensor:
-    """(B, S, K, D) -> (B, S, H, D) by repeating each kv head H/K times."""
+    """(B, S, K, D) -> (B, S, H, D) by repeating each kv head H/K times.
+    A DTensor repeats the kv heads of each shard (its kv heads split
+    evenly, or whole): DTensor's own repeat is a view it refuses over a
+    sharded dim."""
     K = k.shape[2]
     if K == num_heads:
         return k
+    if is_dtensor(k):
+        pl = tuple(k.placements)
+        return on_locals(functools.partial(
+            torch.repeat_interleave, repeats=num_heads // K, dim=2),
+            (k,), (pl,), pl)
     return torch.repeat_interleave(k, num_heads // K, dim=2)
 
 
@@ -303,9 +312,12 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 # --------------------------------------------------------------------------
 
 def mlp_glu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
-            w_down: torch.Tensor, act: str) -> torch.Tensor:
-    h = activate(x @ w_gate, act) * (x @ w_up)
-    return h @ w_down
+            w_down: torch.Tensor, act: str, *, cols=torch.matmul,
+            rows=torch.matmul) -> torch.Tensor:
+    """`cols` and `rows` multiply by the column- and row-split weights
+    (a model's shard-local products for DTensors)."""
+    h = activate(cols(x, w_gate), act) * cols(x, w_up)
+    return rows(h, w_down)
 
 
 def mlp_classic(x: torch.Tensor, w_up: torch.Tensor, w_down: torch.Tensor,

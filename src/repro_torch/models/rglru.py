@@ -20,6 +20,7 @@ Sub-quadratic: prefill attention touches only O(S·window) pairs
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, Tuple
 
@@ -28,9 +29,14 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, RGLRUConfig, padded_vocab
-from repro_torch.distributed.sharding import constrain
+from repro_torch.distributed import sharding
+from repro_torch.distributed.sharding import (Partial, Replicate, Shard,
+                                              constrain, is_dtensor,
+                                              on_locals, on_shards)
 from repro_torch.models import layers as L
-from repro_torch.models.transformer import _dtype, _out_proj, _proj
+from repro_torch.models.transformer import (_cols, _dtype, _kv_for_heads,
+                                            _out_proj, _proj, _rows)
+from repro_torch.models.transformer import embed_tokens as lookup
 
 RG_C = 8.0  # Griffin's fixed `c` exponent scale
 
@@ -160,11 +166,48 @@ def abstract_params(cfg: ModelConfig) -> Dict[str, torch.Tensor]:
 def _block_diag(u: torch.Tensor, w: torch.Tensor,
                 b: torch.Tensor) -> torch.Tensor:
     """u: (B,S,W), w: (nb,bw,bw), b: (W,) -> (B,S,W)."""
+    if is_dtensor(u):
+        return _block_diag_local(u, w, b)
     B, S, W = u.shape
     nb, bw, _ = w.shape
     ub = u.reshape(B, S, nb, bw)
     out = torch.einsum("bsnw,nwv->bsnv", ub, w)
     return out.reshape(B, S, W) + b
+
+
+def _block_diag_local(u, w, b):
+    """`_block_diag` on DTensors, each rank on its own lru channels: u
+    gathered over the dims that split them, each rank's outputs from the
+    one or two blocks they lie in (10 blocks of 256 over 16 ranks of 160
+    channels: no block-aligned split exists), so a rank does 1/16 of
+    the product. The gradient of u and w is partial over those dims."""
+    pu = tuple(u.placements)
+    dm = u.device_mesh
+    R, P = Replicate(), Partial()
+    lru = [pl == Shard(2) for pl in pu]
+    rows = tuple(pl if pl == Shard(0) else R for pl in pu)
+    width = u.to_local().shape[2]
+    c0 = sum(dm.get_local_rank(m) * width for m in range(len(pu)) if lru[m])
+    bw = w.shape[1]
+
+    def product(ul, wl, bl):
+        parts = []
+        for n in range(c0 // bw, (c0 + width - 1) // bw + 1):
+            lo, hi = max(c0, n * bw), min(c0 + width, (n + 1) * bw)
+            parts.append(ul[..., n * bw:(n + 1) * bw]
+                         @ wl[n, :, lo - n * bw:hi - n * bw])
+        return torch.cat(parts, dim=-1) + bl
+
+    out = tuple(Shard(2) if lru[m] else rows[m] for m in range(len(pu)))
+    b_pl = tuple(Shard(0) if lru[m] else R for m in range(len(pu)))
+    return on_locals(
+        product, (u, w, b), (rows, (R,) * len(pu), b_pl), out,
+        in_grad_placements=(
+            tuple(P if lru[m] else rows[m] for m in range(len(pu))),
+            tuple(P if lru[m] or rows[m] != R else R
+                  for m in range(len(pu))),
+            tuple(b_pl[m] if lru[m] else P if rows[m] != R else R
+                  for m in range(len(pu)))))
 
 
 def causal_conv1d(u: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
@@ -202,7 +245,13 @@ def rg_lru(u: torch.Tensor, p: Dict[str, torch.Tensor], h0: torch.Tensor):
     a = torch.exp(log_a)
     gated = i * u.float()
     beta = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12))
-    a_cum, b_cum = linear_scan(a, beta * gated)
+    if is_dtensor(a):
+        # channels scan apart: each rank scans its own
+        pl = tuple(a.placements)
+        a_cum, b_cum = on_locals(linear_scan, (a, beta * gated), (pl, pl),
+                                 (pl, pl))
+    else:
+        a_cum, b_cum = linear_scan(a, beta * gated)
     h = b_cum + a_cum * h0[:, None, :]
     return h, h[:, -1, :]
 
@@ -213,16 +262,22 @@ def rg_lru(u: torch.Tensor, p: Dict[str, torch.Tensor], h0: torch.Tensor):
 
 def recurrent_block(cfg, p, x, st, *, decode: bool):
     """st: {"h": (B,W) f32, "conv": (B,cw-1,W)}."""
-    u = constrain(x @ p["wx"], ("batch", None, "lru"))
+    u = constrain(_cols(x, p["wx"]), ("batch", None, "lru"))
     u, conv_state = causal_conv1d(u, p["conv_w"], p["conv_b"], st["conv"])
     h, hT = rg_lru(u, p, st["h"])
-    gate = F.gelu(x @ p["wg"], approximate="tanh")
-    y = (gate * h.to(x.dtype)) @ p["wout"]
+    gate = F.gelu(_cols(x, p["wg"]), approximate="tanh")
+    y = _rows(gate * h.to(x.dtype), p["wout"])
     return y, {"h": hT, "conv": conv_state.to(st["conv"].dtype)}
 
 
 def _to_ring(k: torch.Tensor, window: int) -> torch.Tensor:
-    """(B, S, K, hd) -> ring buffer (B, window, K, hd), slot = pos % window."""
+    """(B, S, K, hd) -> ring buffer (B, window, K, hd), slot = pos % window.
+    A DTensor's shards each build their own (its positions are whole on
+    every rank; torch 2.11 has no DTensor strategy for `roll`)."""
+    if is_dtensor(k):
+        pl = tuple(k.placements)
+        return on_locals(functools.partial(_to_ring, window=window), (k,),
+                         (pl,), pl)
     S = k.shape[1]
     if S >= window:
         last = k[:, -window:]
@@ -231,19 +286,36 @@ def _to_ring(k: torch.Tensor, window: int) -> torch.Tensor:
     return torch.roll(last, S % window, dims=1)
 
 
+def _ring_write(ring: torch.Tensor, slot: torch.Tensor,
+                val: torch.Tensor) -> torch.Tensor:
+    """ring.index_copy(1, slot, val): the new token's k or v at its ring
+    slot. DTensors write each rank's own shard (torch 2.11 has no
+    DTensor strategy for `index_copy`)."""
+    if is_dtensor(ring):
+        pl = tuple(ring.placements)
+        return on_locals(_ring_write, (ring, slot, val),
+                         (pl, (Replicate(),) * len(pl), pl), pl)
+    return ring.index_copy(1, slot, val)
+
+
 def attention_block(cfg, p, x, st, *, decode: bool, pos=None):
     """st: {"k": (B,window,K,hd), "v": ..., } ring buffer (decode only)."""
     rg = _cfg(cfg)
     B, S, d = x.shape
     H = cfg.num_heads
-    q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
+    # on DTensors q laid out as the cache's head_dim (decode) or by its
+    # own heads, padded (prefill), as the transformer's attention
+    kv_axes = ("batch", None, "kv_heads", "head_dim")
+    q = _proj(x, p["wq"], axes=kv_axes if decode
+              else ("batch", None, "heads", None))
+    k, v = _proj(x, p["wk"], axes=kv_axes), _proj(x, p["wv"], axes=kv_axes)
     if decode:
         positions = pos[None]
         q = L.rope_for_seq(q, positions, cfg.rope_theta)
         k = L.rope_for_seq(k, positions, cfg.rope_theta)
         slot = (pos % rg.attention_window).reshape(1).long()
-        kc = st["k"].index_copy(1, slot, k.to(st["k"].dtype))
-        vc = st["v"].index_copy(1, slot, v.to(st["v"].dtype))
+        kc = _ring_write(st["k"], slot, k.to(st["k"].dtype))
+        vc = _ring_write(st["v"], slot, v.to(st["v"].dtype))
         valid = torch.clamp(pos + 1, max=rg.attention_window)
         out = L.decode_attention(q, L.expand_kv(kc, H), L.expand_kv(vc, H),
                                  valid)
@@ -252,9 +324,15 @@ def attention_block(cfg, p, x, st, *, decode: bool, pos=None):
         positions = torch.arange(S, device=x.device)
         q = L.rope_for_seq(q, positions, cfg.rope_theta)
         k = L.rope_for_seq(k, positions, cfg.rope_theta)
-        out = L.local_chunked_attention(q, L.expand_kv(k, H),
-                                        L.expand_kv(v, H),
-                                        window=rg.attention_window)
+        if is_dtensor(q):
+            # each rank's own (padded) heads attend on their own
+            out = on_shards(functools.partial(
+                L.local_chunked_attention, window=rg.attention_window), q,
+                _kv_for_heads(k, q, H), _kv_for_heads(v, q, H))
+        else:
+            out = L.local_chunked_attention(q, L.expand_kv(k, H),
+                                            L.expand_kv(v, H),
+                                            window=rg.attention_window)
         # stash the last `window` kv as a ring buffer (slot = pos % window)
         # so a subsequent decode phase can continue seamlessly
         w = rg.attention_window
@@ -272,7 +350,8 @@ def _block(cfg, kind, p, x, st, *, decode=False, pos=None):
         out, st = attention_block(cfg, p, h, st, decode=decode, pos=pos)
     x = x + out
     h = L.rms_norm(x, p["ln2"], cfg.rms_eps)
-    mlp = L.mlp_glu(h, p["w_gate"], p["w_up"], p["w_down"], cfg.act)
+    mlp = L.mlp_glu(h, p["w_gate"], p["w_up"], p["w_down"], cfg.act,
+                    cols=_cols, rows=_rows)
     return constrain(x + mlp, ("batch", None, None)), st
 
 
@@ -355,10 +434,12 @@ def _split(params):
 
 def embed_tokens(cfg: ModelConfig, embed: torch.Tensor,
                  tok: torch.Tensor) -> torch.Tensor:
-    """Embedding rows of `tok`, times sqrt(d_model) with `scale_embed`:
-    the constant rounded to the embedding's dtype first, as the
-    reference rounds it (50.5 in bf16 at d = 2560, not 50.596)."""
-    x = embed[tok.long()]
+    """Embedding rows of `tok` (a DTensor table's looked up on each
+    rank's own vocab rows, `transformer.embed_tokens`), times
+    sqrt(d_model) with `scale_embed`: the constant rounded to the
+    embedding's dtype first, as the reference rounds it (50.5 in bf16 at
+    d = 2560, not 50.596)."""
+    x = lookup(embed, tok)
     if cfg.scale_embed:
         x = x * float(torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype))
     return x
@@ -377,7 +458,13 @@ def forward(cfg: ModelConfig, params, batch, *, state=None,
     tok = batch["tokens"]
     x = constrain(embed_tokens(cfg, top["embed"], tok), ("batch", None, None))
     B = x.shape[0]
-    st = state if state is not None else init_state(cfg, B, device=x.device)
+    if state is not None:
+        st = state
+    elif is_dtensor(x):
+        st = sharding.zeros_tree(abstract_state(cfg, B), x,
+                                 state_logical_axes(cfg))
+    else:
+        st = init_state(cfg, B, device=x.device)
     pos = st["len"]
 
     def body(x, lp_by_block, s_by_block):
@@ -409,7 +496,7 @@ def forward(cfg: ModelConfig, params, batch, *, state=None,
     if last_only:
         x = x[:, -1:]
     w = top["embed"] if cfg.tie_embeddings else top["head"]
-    logits = constrain(x @ w.T, ("batch", None, "vocab"))
+    logits = constrain(_cols(x, w.T), ("batch", None, "vocab"))
     logits = L.soft_cap(logits, cfg.logit_softcap)
     logits = L.mask_pad_logits(logits, cfg.vocab_size)
     if return_state:

@@ -29,9 +29,12 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, RWKVConfig, padded_vocab
-from repro_torch.distributed.sharding import constrain
+from repro_torch.distributed import sharding
+from repro_torch.distributed.sharding import (Partial, Replicate, Shard,
+                                              constrain, is_dtensor,
+                                              on_locals)
 from repro_torch.models import layers as L
-from repro_torch.models.transformer import _dtype
+from repro_torch.models.transformer import _cols, _dtype, _rows, embed_tokens
 
 
 # --------------------------------------------------------------------------
@@ -213,11 +216,29 @@ def _ddlerp(p, x, xx):
     B, S, d = x.shape
     mlora = p["w_mix1"].shape[1] // 5
     base = x + xx * p["mu_x"]
-    s = torch.tanh(base @ p["w_mix1"]).reshape(B, S, 5, mlora)
-    offs = torch.einsum("bsfm,fmd->bsfd", s, p["w_mix2"])  # (B,S,5,d)
+    if is_dtensor(x):
+        offs = _offsets(p, base, mlora)
+    else:
+        s = torch.tanh(base @ p["w_mix1"]).reshape(B, S, 5, mlora)
+        offs = torch.einsum("bsfm,fmd->bsfd", s, p["w_mix2"])  # (B,S,5,d)
     mix = p["mu"][None, None] + offs                        # (B,S,5,d)
     xi = x[:, :, None, :] + xx[:, :, None, :] * mix         # (B,S,5,d)
     return tuple(xi[:, :, i] for i in range(5))             # w,k,v,r,g
+
+
+def _offsets(p, base, mlora: int):
+    """The lerp's lora offsets (B, S, 5, d) on DTensors: the lora rows
+    laid out whole around their (5, mix_lora) split (the gradient too),
+    the offsets by the batch's rows where they split, else by d as the
+    weight splits it (a batch of one), as GSPMD lays them out."""
+    B, S, d = base.shape
+    s = constrain(constrain(torch.tanh(base @ p["w_mix1"]),
+                            ("batch", None, None)).reshape(B, S, 5, mlora),
+                  ("batch", None, None, None))
+    rows = any(pl == Shard(0) for pl in base.placements)
+    return constrain(torch.einsum("bsfm,fmd->bsfd", s, p["w_mix2"]),
+                     ("batch", None, None, None) if rows
+                     else (None, None, None, "embed"))
 
 
 def time_mix(cfg: ModelConfig, p, x, tm_state, wkv_state, *,
@@ -229,6 +250,11 @@ def time_mix(cfg: ModelConfig, p, x, tm_state, wkv_state, *,
     H, hs = d // rw.head_size, rw.head_size
     xx = _token_shift(x, tm_state) - x
     xw, xk, xv, xr, xg = _ddlerp(p, x, xx)
+    fn = wkv_chunked if wkv_impl == "chunked" else wkv_scan
+    if is_dtensor(x):
+        out, wkv_state = _heads_local(cfg, p, x, (xw, xk, xv, xr, xg),
+                                      wkv_state, fn)
+        return out, x[:, -1, :], wkv_state
     r = constrain((xr @ p["wr"]).reshape(B, S, H, hs),
                   ("batch", None, "heads", None))
     k = constrain((xk @ p["wk"]).reshape(B, S, H, hs),
@@ -239,7 +265,6 @@ def time_mix(cfg: ModelConfig, p, x, tm_state, wkv_state, *,
     dlog = (p["w_base"].float()
             + (torch.tanh(xw @ p["wd1"]) @ p["wd2"]).float())
     w = torch.exp(-torch.exp(dlog)).reshape(B, S, H, hs)    # decay in (0,1)
-    fn = wkv_chunked if wkv_impl == "chunked" else wkv_scan
     y, wkv_state = fn(r, k, v, w, p["u"], wkv_state)
     y = y.reshape(B, S, d)
     y = L.group_norm(y, p["ln_x_scale"], p["ln_x_bias"], num_groups=H)
@@ -247,13 +272,76 @@ def time_mix(cfg: ModelConfig, p, x, tm_state, wkv_state, *,
     return out, x[:, -1, :], wkv_state
 
 
+def _heads_local(cfg: ModelConfig, p, x, mixed, wkv_state, fn):
+    """`time_mix` from its projections on, on DTensors: r, k, v, g and
+    the decay projected on each rank's own heads_d columns and gathered,
+    then each rank runs the WKV, ln_x and its rows of wo on its own heads,
+    padded as GSPMD pads them (40 heads over 16 ranks are 48, 3 each;
+    zero r, k, v and wo rows). Returns the output, a partial sum over the
+    dims that split the heads, and the new state laid out as the old."""
+    rw = cfg.rwkv or RWKVConfig()
+    B, S, d = x.shape
+    H, hs = d // rw.head_size, rw.head_size
+    xw, xk, xv, xr, xg = mixed
+    rows_ax = ("batch", None, None)
+    r = constrain(_cols(xr, p["wr"]), rows_ax)
+    k = constrain(_cols(xk, p["wk"]), rows_ax)
+    v = constrain(_cols(xv, p["wv"]), rows_ax)
+    g = constrain(F.silu(_cols(xg, p["wg"])), rows_ax)
+    dlog = constrain(p["w_base"].float()
+                     + (torch.tanh(xw @ p["wd1"]) @ p["wd2"]).float(),
+                     rows_ax)
+    dm = x.device_mesh
+    R, P = Replicate(), Partial()
+    rows = tuple(pl if pl == Shard(0) else R for pl in r.placements)
+    split = [pl == Shard(2) for pl in sharding.wanted(
+        ("batch", None, "heads", None), dm)]
+    per, h0 = H, 0
+    for m, s in enumerate(split):
+        if s:
+            per, h0 = sharding.rank_split(H, dm, m)
+    dtype = x.dtype
+
+    def local(r, k, v, dlog, g, u, scale, bias, wo, st):
+        Bl = r.shape[0]
+
+        def heads(t):
+            return sharding.take_padded(t.reshape(Bl, S, H, hs), 2, h0, per)
+
+        def chans(t, dim):
+            return sharding.take_padded(t, dim, h0 * hs, per * hs)
+
+        w = torch.exp(-torch.exp(heads(dlog)))
+        y, st = fn(heads(r), heads(k), heads(v), w,
+                   sharding.take_padded(u, 0, h0, per),
+                   sharding.take_padded(st, 1, h0, per))
+        y = L.group_norm(y.reshape(Bl, S, per * hs), chans(scale, 0),
+                         chans(bias, 0), num_groups=per)
+        return (y * chans(g, 2)).to(dtype) @ chans(wo, 0), st
+
+    part = tuple(P if split[m] else rows[m] for m in range(len(rows)))
+    whole = tuple(P if split[m] or rows[m] != R else R
+                  for m in range(len(rows)))
+    out, st = on_locals(
+        local, (r, k, v, dlog, g, p["u"], p["ln_x_scale"], p["ln_x_bias"],
+                p["wo"], wkv_state),
+        (rows,) * 5 + ((R,) * len(rows),) * 4 + (rows,),
+        (part, tuple(Shard(1) if split[m] else rows[m]
+                     for m in range(len(rows)))),
+        in_grad_placements=(part,) * 5 + (whole,) * 4 + (part,))
+    if st.shape[1] != H:
+        # the padded heads gathered and cut off: the state's own layout
+        st = st.redistribute(dm, rows)[:, :H]
+    return out, st
+
+
 def channel_mix(cfg: ModelConfig, p, x, cm_state):
     xx = _token_shift(x, cm_state) - x
     xk = x + xx * p["c_mu_k"]
     xr = x + xx * p["c_mu_r"]
-    kk = F.relu(xk @ p["wck"])
+    kk = F.relu(_cols(xk, p["wck"]))
     kk = kk * kk
-    out = torch.sigmoid(xr @ p["wcr"]) * (kk @ p["wcv"])
+    out = torch.sigmoid(_cols(xr, p["wcr"])) * _rows(kk, p["wcv"])
     return out, x[:, -1, :]
 
 
@@ -311,10 +399,16 @@ def forward(cfg: ModelConfig, params, batch, *, state=None,
     `jax.checkpoint(..., nothing_saveable)` over its scanned layer."""
     top, lyr = _split(params)
     tok = batch["tokens"]
-    x = constrain(top["embed"][tok.long()], ("batch", None, None))
+    x = constrain(embed_tokens(top["embed"], tok), ("batch", None, None))
     x = L.rms_norm(x, top["embed_norm"], cfg.rms_eps)
     B = x.shape[0]
-    st = state if state is not None else init_state(cfg, B, device=x.device)
+    if state is not None:
+        st = state
+    elif is_dtensor(x):
+        st = sharding.zeros_tree(abstract_state(cfg, B), x,
+                                 state_logical_axes(cfg))
+    else:
+        st = init_state(cfg, B, device=x.device)
 
     def body(x, lp, s):
         return _layer(cfg, lp, x, s, wkv_impl=wkv_impl)
@@ -334,7 +428,7 @@ def forward(cfg: ModelConfig, params, batch, *, state=None,
     if last_only:
         x = x[:, -1:]
     w = top["embed"] if cfg.tie_embeddings else top["head"]
-    logits = constrain(x @ w.T, ("batch", None, "vocab"))
+    logits = constrain(_cols(x, w.T), ("batch", None, "vocab"))
     logits = L.mask_pad_logits(logits, cfg.vocab_size)
     if return_state:
         new_state = {k: torch.stack(v) for k, v in new.items()}

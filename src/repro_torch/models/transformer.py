@@ -148,13 +148,17 @@ def abstract_params(cfg: ModelConfig) -> Dict[str, torch.Tensor]:
 # Layer
 # --------------------------------------------------------------------------
 
-def _proj(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """einsum("bsd,dhk->bshk"): (B, S, d) x (d, N, k) -> (B, S, N, k).
-    DTensors (the dry-run) project on each rank's shards (`_proj_local`)."""
+def _proj(x: torch.Tensor, w: torch.Tensor, b=None,
+          axes: Optional[Tuple] = None) -> torch.Tensor:
+    """einsum("bsd,dhk->bshk") (+ b): (B, S, d) x (d, N, k) -> (B, S, N,
+    k). DTensors (the dry-run) project on each rank's shards
+    (`_proj_local`), into the layout of the logical `axes` where the
+    weight is whole on a mesh dim that they split."""
     if is_dtensor(w):
-        return _proj_local(x, w)
+        return _proj_local(x, w, b, axes)
     d, N, k = w.shape
-    return (x @ w.reshape(d, N * k)).unflatten(-1, (N, k))
+    out = (x @ w.reshape(d, N * k)).unflatten(-1, (N, k))
+    return out if b is None else out + b
 
 
 def _out_proj(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
@@ -166,32 +170,84 @@ def _out_proj(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
     return o.flatten(-2) @ wo.reshape(H * k, d)
 
 
-def _proj_local(x, w):
+def _cols(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w, w (d, n). A DTensor weight projects column-parallel under
+    FSDP on each rank's own columns, as `_proj_local` (DTensor's own
+    choice can gather a weight whole where the activations are small)."""
+    if is_dtensor(w):
+        return _proj_local(x, w.unsqueeze(1)).squeeze(2)
+    return x @ w
+
+
+def _rows(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """h @ w, w (n, d), h's n split as w's rows. On DTensors each rank
+    contracts its own part (`_out_proj_local`), the result a partial
+    sum over the dims that split it."""
+    if is_dtensor(w):
+        return _out_proj_local(h.unsqueeze(2), w.unsqueeze(0))
+    return h @ w
+
+
+def _proj_local(x, w, b=None, axes=None):
     """Megatron's column-parallel projection under FSDP, on DTensors: the
     weight gathered over the mesh dims that split its d (rows of the
     batch stay split), each rank projecting its rows onto its own heads
-    or head_dim. Its gradients: x's partial over the dims that split
-    the heads, w's over those that split the rows. (DTensor's own
-    propagation cannot keep a head_dim shard through the (N, k)
-    flatten, and picks layouts its views then refuse.)"""
+    or head_dim. Where the weight is whole on a mesh dim over which
+    `axes` split the heads or head_dim, each rank takes its own part of
+    it, zero-padded where the dim does not divide (GSPMD slicing a
+    replicated operand: Qwen3-14B's 40 heads are 48 over 16 ranks, 3
+    each). Where x comes split over its d as the weight's rows are (a
+    batch of one, laid out by the weight), each rank contracts its own
+    part of d, the result a partial sum there. The bias `b` (N, k) goes
+    with the weight's columns. Its gradients: x's partial over the dims
+    that split the heads or d, w's and b's over those that split the
+    rows or cut the whole weight. (DTensor's own propagation cannot keep
+    a head_dim shard through the (N, k) flatten, and picks layouts its
+    views then refuse.)"""
     px, pw = tuple(x.placements), tuple(w.placements)
+    dm = w.device_mesh
+    n = len(px)
+    R, P = Replicate(), Partial()
+    want = sharding.wanted(axes, dm) if axes is not None else (R,) * n
     rows = [isinstance(p, Shard) and p.dim == 0 for p in px]
     cols = [isinstance(p, Shard) and p.dim in (1, 2) for p in pw]
+    cut = [not rows[m] and pw[m] == R and isinstance(want[m], Shard)
+           and want[m].dim in (2, 3) for m in range(n)]
+    inner = [px[m] == Shard(x.dim() - 1) and pw[m] == Shard(0)
+             for m in range(n)]
     if any(r and c for r, c in zip(rows, cols)):
         raise ValueError(f"rows {px} and heads {pw} on one mesh dim")
-    R, P = Replicate(), Partial()
-    n = len(px)
-    return on_locals(
-        _proj, (x, w),
-        (tuple(Shard(0) if rows[m] else R for m in range(n)),
-         tuple(pw[m] if cols[m] else R for m in range(n))),
-        tuple(Shard(0) if rows[m] else Shard(pw[m].dim + 1) if cols[m]
-              else R for m in range(n)),
-        in_grad_placements=(
-            tuple(Shard(0) if rows[m] else P if cols[m] else R
-                  for m in range(n)),
-            tuple(pw[m] if cols[m] else P if rows[m] else R
-                  for m in range(n))))
+    # (w's dim, count per rank, this rank's start) of each cut
+    cuts = [(want[m].dim - 1,) + sharding.rank_split(
+        w.shape[want[m].dim - 1], dm, m) for m in range(n) if cut[m]]
+    # a partial sum over d takes the bias once, on the first of its ranks
+    bias_here = all(dm.get_local_rank(m) == 0 for m in range(n) if inner[m])
+
+    def proj(xl, wl, bl=None):
+        for dim, per, start in cuts:
+            wl = sharding.take_padded(wl, dim, start, per)
+            if bl is not None:
+                bl = sharding.take_padded(bl, dim - 1, start, per)
+        return _proj(xl, wl, bl if bias_here else None)
+
+    out = tuple(Shard(0) if rows[m] else Shard(pw[m].dim + 1) if cols[m]
+                else want[m] if cut[m] else P if inner[m] else R
+                for m in range(n))
+    x_pl = tuple(Shard(0) if rows[m] else px[m] if inner[m] else R
+                 for m in range(n))
+    w_pl = tuple(pw[m] if cols[m] or inner[m] else R for m in range(n))
+    x_grad = tuple(x_pl[m] if rows[m] or inner[m] else P if cols[m]
+                   or cut[m] else R for m in range(n))
+    w_grad = tuple(pw[m] if cols[m] or inner[m] else P if rows[m] or cut[m]
+                   else R for m in range(n))
+    if b is None:
+        return on_locals(proj, (x, w), (x_pl, w_pl), out,
+                         in_grad_placements=(x_grad, w_grad))
+    b_pl = tuple(Shard(pw[m].dim - 1) if cols[m] else R for m in range(n))
+    b_grad = tuple(b_pl[m] if cols[m] else P if rows[m] or cut[m]
+                   or inner[m] else R for m in range(n))
+    return on_locals(proj, (x, w, b), (x_pl, w_pl, b_pl), out,
+                     in_grad_placements=(x_grad, w_grad, b_grad))
 
 
 def _out_proj_local(o, wo):
@@ -199,8 +255,10 @@ def _out_proj_local(o, wo):
     rank contracts its own heads or head_dim (the weight gathered over
     the dims that split its d), the result a partial sum over the dims
     that split them; wo's gradient partial over those that split the
-    rows."""
-    po = tuple(o.placements)
+    rows. Where wo is whole on such a dim, each rank takes the rows of
+    its own heads (zero rows for padded ones, `_proj_local`), and wo's
+    gradient is partial there too."""
+    po, pwo = tuple(o.placements), tuple(wo.placements)
     if any(isinstance(p, Shard) and p.dim == 1 for p in po):
         raise ValueError(f"an attention output laid out as {po}")
     rows = [p == Shard(0) for p in po]
@@ -209,24 +267,67 @@ def _out_proj_local(o, wo):
              for p in po]
     R, P = Replicate(), Partial()
     n = len(po)
+    cut = [inner[m] is not None and pwo[m] == R for m in range(n)]
+    dm = wo.device_mesh
+    cuts = [(inner[m], o.to_local().shape[inner[m] + 2],
+             dm.get_local_rank(m) * o.to_local().shape[inner[m] + 2])
+            for m in range(n) if cut[m]]
+
+    def proj(ol, wl):
+        for dim, per, start in cuts:
+            wl = sharding.take_padded(wl, dim, start, per)
+        return _out_proj(ol, wl)
+
     o_pl = tuple(Shard(0) if rows[m] else R if inner[m] is None
                  else Shard(inner[m] + 2) for m in range(n))
-    wo_pl = tuple(R if inner[m] is None else Shard(inner[m])
+    wo_pl = tuple(R if inner[m] is None or cut[m] else Shard(inner[m])
                   for m in range(n))
     return on_locals(
-        _out_proj, (o, wo), (o_pl, wo_pl),
+        proj, (o, wo), (o_pl, wo_pl),
         tuple(Shard(0) if rows[m] else R if inner[m] is None else P
               for m in range(n)),
         in_grad_placements=(
-            o_pl, tuple(wo_pl[m] if inner[m] is not None
-                        else P if rows[m] else R for m in range(n))))
+            o_pl, tuple(wo_pl[m] if inner[m] is not None and not cut[m]
+                        else P if rows[m] or cut[m] else R
+                        for m in range(n))))
+
+
+def _kv_for_heads(k, q, num_heads: int):
+    """A DTensor's kv (B, S, K, hd) for the heads of q (B, S, Hp, hd),
+    laid out as q: each rank gathers the kv heads and picks those of its
+    own heads of q, which may run past `num_heads` (padded, `_proj_local`;
+    their q and wo rows are zero). The gradient is partial over the
+    dims that split q's heads."""
+    pq = tuple(q.placements)
+    dm = q.device_mesh
+    G = num_heads // k.shape[2]
+    per = q.to_local().shape[2]
+    start = sum(dm.get_local_rank(m) * per for m, p in enumerate(pq)
+                if p == Shard(2))
+    R, P = Replicate(), Partial()
+    k_pl = tuple(p if p == Shard(0) else R for p in pq)
+
+    def pick(kl):
+        heads = torch.arange(start, start + per, device=kl.device)
+        return kl.index_select(2, (heads // G).clamp(max=kl.shape[2] - 1))
+
+    return on_locals(pick, (k,), (k_pl,), pq, in_grad_placements=(
+        tuple(P if p == Shard(2) else k_pl[m] for m, p in enumerate(pq)),))
 
 
 def _qkv(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
-         positions: torch.Tensor):
-    q, k, v = _proj(x, p["wq"]), _proj(x, p["wk"]), _proj(x, p["wv"])
+         positions: torch.Tensor, q_axes: Tuple):
+    """q, k and v, rotated; on DTensors q in the layout of `q_axes` and
+    k, v in the cache's."""
+    kv_axes = ("batch", None, "kv_heads", "head_dim")
     if cfg.qkv_bias:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+        q = _proj(x, p["wq"], p["bq"], q_axes)
+        k = _proj(x, p["wk"], p["bk"], kv_axes)
+        v = _proj(x, p["wv"], p["bv"], kv_axes)
+    else:
+        q = _proj(x, p["wq"], axes=q_axes)
+        k = _proj(x, p["wk"], axes=kv_axes)
+        v = _proj(x, p["wv"], axes=kv_axes)
     if cfg.qk_norm:
         q = L.rms_norm(q, p["q_norm"], cfg.rms_eps)
         k = L.rms_norm(k, p["k_norm"], cfg.rms_eps)
@@ -243,8 +344,9 @@ def _attn(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
     """Self-attention. Returns (out, (k, v)) with this segment's keys and
     values (decode reads kv_in as the full cache, new kv written)."""
     H = cfg.num_heads
-    q, k, v = _qkv(cfg, p, x, positions)
-    q = constrain(q, ("batch", None, "heads", None))
+    heads = ("batch", None, "heads", None)
+    q, k, v = _qkv(cfg, p, x, positions, heads)
+    q = constrain(q, heads)
     k = constrain(k, ("batch", None, "kv_heads", "head_dim"))
     v = constrain(v, ("batch", None, "kv_heads", "head_dim"))
     if mode == "decode":
@@ -253,10 +355,16 @@ def _attn(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor,
                                  L.expand_kv(v_cache, H), cache_len,
                                  window=window)
     else:
-        # the expanded kv laid out as q's heads: a DTensor's kv sharded
-        # over head_dim reshards here, not in the repeat's backward
-        ke = constrain(L.expand_kv(k, H), ("batch", None, "heads", None))
-        ve = constrain(L.expand_kv(v, H), ("batch", None, "heads", None))
+        if q.shape[2] != H:
+            # a DTensor's heads padded over the mesh: the kv of each
+            # rank's own heads
+            ke, ve = _kv_for_heads(k, q, H), _kv_for_heads(v, q, H)
+        else:
+            # the expanded kv laid out as q's heads: a DTensor's kv
+            # sharded over head_dim reshards here, not in the repeat's
+            # backward
+            ke = constrain(L.expand_kv(k, H), heads)
+            ve = constrain(L.expand_kv(v, H), heads)
         # batch rows and heads attend apart: a DTensor's shards each
         # run the plain attention on their own (q, k, v)
         if window is not None:
@@ -278,7 +386,12 @@ def _ffn(cfg: ModelConfig, p: Dict[str, torch.Tensor], x: torch.Tensor):
     out, aux = moe_lib.moe_ffn(cfg, p, x)
     if cfg.moe.num_shared_experts:
         shared = L.mlp_glu(x, p["ws_gate"], p["ws_up"], p["ws_down"], cfg.act)
-        gate = torch.sigmoid(x.float() @ p["shared_gate"].float())[..., None]
+        if is_dtensor(x):
+            gate = torch.sigmoid(_cols(x.float(),
+                                       p["shared_gate"].float()[:, None]))
+        else:
+            gate = torch.sigmoid(
+                x.float() @ p["shared_gate"].float())[..., None]
         out = out + (gate * shared.float()).to(out.dtype)
     return out, aux
 
@@ -385,7 +498,11 @@ def output_logits(cfg: ModelConfig, params, h: torch.Tensor) -> torch.Tensor:
     top, _ = _split_layers(params)
     w = top["embed"] if cfg.tie_embeddings else top["head"]
     if cfg.frontend.kind == "audio" and cfg.frontend.num_codebooks > 1:
-        logits = constrain(torch.einsum("bsd,cvd->bscv", h, w),
+        # a DTensor head (C, V, d) projects on each rank's own vocab rows
+        # of every codebook, as a (d, C, V) column-parallel projection
+        logits = constrain(_proj_local(h, w.permute(2, 0, 1))
+                           if is_dtensor(w) else
+                           torch.einsum("bsd,cvd->bscv", h, w),
                            ("batch", None, None, "vocab"))
     else:
         logits = constrain(h @ w.T, ("batch", None, "vocab"))
@@ -592,11 +709,12 @@ def decode_step(cfg: ModelConfig, params, batch, cache, *,
         lp = _layer_params(lyr, i)
         kc, vc = cache["k"][i], cache["v"][i]    # views into the pools
         h = L.rms_norm(x, lp["ln1"], cfg.rms_eps)
-        q, k, v = _qkv(cfg, lp, h, positions)
         # q laid out as the cache's heads (the grouped attention splits
         # H into (K, G)); flash-decoding replicates it instead
-        q = constrain(q, ("batch", None, None, None) if replicate_q
-                      else ("batch", None, "kv_heads", "head_dim"))
+        q_axes = (("batch", None, None, None) if replicate_q
+                  else ("batch", None, "kv_heads", "head_dim"))
+        q, k, v = _qkv(cfg, lp, h, positions, q_axes)
+        q = constrain(q, q_axes)
         if paged:
             _scatter_token(kc, cache["block_table"], pos, k[:, 0])
             _scatter_token(vc, cache["block_table"], pos, v[:, 0])
