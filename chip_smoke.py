@@ -104,7 +104,24 @@ points:
   mean within sum(s_i)/(2n) of the f32 mean of the pods' gradients, step
   1's loss equal to `make_train_step`'s on the whole batch split as the
   pods split it (within (a)'s margin); the step's median, the
-  all-gather's wall time and bytes beside `dcn_bytes_per_step`;
+  all-gather's wall time and bytes beside `dcn_bytes_per_step`; (c)
+  execution over (data, model) = (2, 1) and (1, 2): two processes on
+  the one card in a gloo world (this process rank 0; DTensor's
+  collectives through buffers both map, `shared_card`), Qwen1.5-0.5B at
+  full size trained 3 steps by `train(..., mesh=)` (8 x 1024 tokens in
+  2 microbatches; losses and grad norms equal on both ranks, the losses
+  within MESH_LOSS_REL's bound of the unsharded run's, one more step in
+  f32 at 4 layers holding the grad norm to the unsharded one within
+  MESH_GN_REL, each rank holding half the state), Qwen3-1.7B's prefill
+  cell (16 x
+  2048) and decode cell (16 at 2112, pages of 256, 32 greedy steps) in
+  bf16 at full depth (logits within 3e-2) and in f32 at 4 of 28 layers
+  (8 steps, tokens equal to the unsharded path's), every per-shard
+  RMSNorm and paged-attention call held to its plain version on the
+  same local tensors and the launches asserted per rank; the data = 2
+  run's checkpoint (saved by rank 0, leaves whole) resumed on a 1 x 1
+  mesh from a bit-identical state; the all-gather's rate, the time
+  inside the collectives and one profiled decode step per mesh;
 - the dry-run over the production meshes (phase 14): (a)
   `repro_torch.launch.dryrun` for Qwen3-1.7B's train_4k, prefill_32k
   and decode_32k cells on 16 x 16, Qwen1.5-0.5B's train_4k with
@@ -3367,6 +3384,642 @@ def pod_phase(dev, card: str, work: Path, cfg15, ref: dict) -> dict:
     return {"rmsnorm": sum(r["rmsnorm"] for r in got), "ranks": got}
 
 
+# ---- slice J, cells and train(..., mesh=) over data and model: 13c -----
+
+MESH_SHAPES = [(2, 1), (1, 2)]   # (data, model) of phase 13c's runs
+MESH_RANKS = 2                   # processes on the one card
+MESH_DECODE_STEPS = 32           # greedy steps of 13c's bf16 decode cells
+MESH_F32_STEPS = 8               # and of the f32 ones
+MESH_DECODE_SEQ = 2112           # the decode cells' seq_len (pages of 256)
+MESH_F32_LAYERS = 4              # depth of the f32 serving run (of 28)
+MESH_CKPT = CELL_STEPS           # the (2, 1) run's checkpoint step
+MESH_LOGIT_TOL = 3e-2            # bf16 logits, as phase 12's
+# bf16 losses and grad norms: the mesh reorders and re-rounds bf16 sums
+# (the FSDP gradients' reduce-scatter, the Megatron projections'
+# all-reduces), so they equal the unsharded path's to bf16's precision,
+# not bit for bit: within the larger of bf16's unit roundoff (8
+# significant bits) times the value and the distance bf16 itself puts
+# between the unsharded run and an f32 run on the same seed and data
+MESH_LOSS_REL = 2.0 ** -8
+# AdamW's grad norm (the global one, the same on every rank) is held in
+# f32 at MESH_F32_LAYERS layers: at this init it is dominated by the tied
+# embedding's gradient, a sum of large cancelling terms over the batch's
+# tokens, which bf16 moves by percents (phase 13c prints both), and
+# another f32 reduction order by up to ~3e-4 of it; a rank's own norm
+# in place of the global one would sit ~29% low at data = 2
+MESH_GN_REL = 1e-3
+
+
+def profiled(dev, fn) -> dict:
+    """One call of `fn` under torch.profiler: its wall time, the device
+    time this process's kernels took and the host time inside the
+    collectives (`shared_card.moved`)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.distributed import shared_card
+    acts = [ProfilerActivity.CPU]
+    if dev.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    _sync(dev)
+    before = dict(shared_card.moved)
+    with profile(activities=acts) as prof:
+        t = time.perf_counter()
+        fn()
+        _sync(dev)
+        wall = time.perf_counter() - t
+    kernels = [e for e in prof.key_averages()
+               if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    busy = sum(getattr(e, "self_device_time_total", 0.0)
+               for e in kernels) / 1e6
+    return {"wall_s": wall, "device_s": busy if dev.type == "cuda" else None,
+            "coll_s": shared_card.moved["seconds"] - before["seconds"],
+            "coll_bytes": shared_card.moved["bytes"] - before["bytes"]}
+
+
+class ShardKernelCheck:
+    """For the `with` block, every call the model layer makes to the
+    RMSNorm op (`layers.rms_norm_op`) and the paged kernel
+    (`transformer.paged_decode_attention`), on this rank's local tensors,
+    is held to the plain version on the same tensors at phase 6's
+    tolerances (atol = rtol = RMS_TOL, PA_TOL of the dtype). The worst
+    error and the worst excess over |got - want| <= tol (1 + |want|)
+    accumulate on the device, with no sync per call; `report()` reads
+    them."""
+
+    def __init__(self):
+        from repro_torch.models import layers, transformer
+        self.layers, self.t = layers, transformer
+        self.calls, self.err, self.over = {}, {}, {}
+
+    def note(self, name, got, want, tol) -> None:
+        import torch
+        key = (name, str(got.dtype).split(".")[-1])
+        d = (got.detach().float() - want.float()).abs()
+        err = d.max()
+        over = (d - tol[key[1]] * (1 + want.float().abs())).max()
+        self.calls[key] = self.calls.get(key, 0) + 1
+        if key in self.err:
+            err = torch.maximum(self.err[key], err)
+            over = torch.maximum(self.over[key], over)
+        self.err[key], self.over[key] = err, over
+
+    def __enter__(self):
+        import torch
+        from repro_torch.kernels.paged_attention.ref import \
+            paged_decode_attention_ref
+        from repro_torch.kernels.rmsnorm.ref import rms_norm_ref
+        self.rms, self.paged = (self.layers.rms_norm_op,
+                                self.t.paged_decode_attention)
+
+        def rms(x, scale, eps=1e-6):
+            y = self.rms(x, scale, eps)
+            with torch.no_grad():
+                self.note("rmsnorm", y, rms_norm_ref(
+                    x.detach(), scale.detach(), eps), RMS_TOL)
+            return y
+
+        def paged(q, kc, vc, table, lens):
+            out = self.paged(q, kc, vc, table, lens)
+            self.note("paged_decode_attention", out,
+                      paged_decode_attention_ref(q, kc, vc, table, lens),
+                      PA_TOL)
+            return out
+
+        self.layers.rms_norm_op, self.t.paged_decode_attention = rms, paged
+        return self
+
+    def __exit__(self, *exc):
+        self.layers.rms_norm_op, self.t.paged_decode_attention = \
+            self.rms, self.paged
+
+    def report(self) -> dict:
+        """{"kernel/dtype": (calls, max_abs_err, within tolerance)}."""
+        return {f"{k[0]}/{k[1]}": (n, float(self.err[k]),
+                                   float(self.over[k]) <= 0.0)
+                for k, n in self.calls.items()}
+
+
+def _same_on_every_rank(tree, what: str) -> None:
+    """Every rank holds the same whole tensors: their digests gathered
+    and compared (the ranks draw their params from the same seed, each
+    on its own device generator)."""
+    import torch.distributed as dist
+    from repro_torch.distributed.sharding import tree_leaves
+    mine = [_digest(t) for t in tree_leaves(tree)]
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, mine)
+    assert all(d == mine for d in every), f"{what} differ between ranks"
+
+
+def _f32(cfg, job):
+    """`cfg` in f32 at `job["f32_layers"]` layers (13c's f32 checks)."""
+    import dataclasses
+    return dataclasses.replace(cfg, num_layers=job["f32_layers"],
+                               dtype="float32")
+
+
+def _serve_cfgs(job):
+    """{label: (config, decode steps)} of 13c's serving runs."""
+    return {"bf16": (job["cfg3"], job["decode_steps"]),
+            "f32": (_f32(job["cfg3"], job), job["f32_steps"])}
+
+
+def _prompts(dev, job):
+    import numpy as np
+    import torch
+    rng = np.random.default_rng(SEED)
+    return torch.from_numpy(rng.integers(
+        0, job["cfg3"].vocab_size, (job["slots"], job["prompt"])).astype(
+        np.int32)).to(dev)
+
+
+def mesh_rank(rank: int, world: int, init_file: str, device: str,
+              job: dict, checkpointer=None):
+    """One rank of phase 13c on a gloo world of `world` over `init_file`:
+    for each (data, model) of `job["meshes"]`, (a) `train(...,
+    mesh=make_test_mesh(data, model))` of `job["cfg15"]` (rank 0 passes
+    `checkpointer` on `job["ckpt_mesh"]`, which saves at MESH_CKPT), the
+    time inside the collectives counted; (b) Qwen3-1.7B's prefill
+    cell and greedy steps of its decode cell, bf16 at full depth and f32
+    at `job["f32_layers"]` layers, one more decode step profiled; every
+    kernel call held to its plain
+    version (`ShardKernelCheck`). Returns (this rank's measurements, on
+    rank 0 the whole state saved at the checkpoint, else None)."""
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                            rank=rank, world_size=world,
+                            timeout=timedelta(seconds=300))
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.distributed import shared_card
+    from repro_torch.distributed.sharding import full, tree_leaves
+    from repro_torch.kernels.rmsnorm import kernel as rms_kernel
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.train import train
+    from repro_torch.models import build_model
+
+    cfg15 = job["cfg15"]
+    on_card = dev.type == "cuda"
+    out = {"rank": rank, "runs": {}}
+    saved = None
+
+    def stage(what, t):
+        if rank == 0:
+            print(f"phase 13c rank 0: {what} in "
+                  f"{time.perf_counter() - t:.3f} s", flush=True)
+    shape = ShapeConfig("mesh_train", seq_len=job["seq"],
+                        global_batch=job["batch"], kind="train")
+    prompts = _prompts(dev, job)
+    check = ShardKernelCheck()
+    try:
+        # the collectives' rate on this device: one all-gather of 256 MB
+        # per rank through the shared buffers, after a warm one
+        x = torch.zeros(128 * MB, dtype=torch.bfloat16, device=dev)
+        name = dist.group.WORLD.group_name
+        shared_card.all_gather_into_tensor(x, world, name)
+        _sync(dev)
+        t = time.perf_counter()
+        shared_card.all_gather_into_tensor(x, world, name)
+        _sync(dev)
+        out["gather_rate"] = world * x.numel() * 2 / (time.perf_counter()
+                                                     - t)
+        del x
+        with check:
+            for d, m in job["meshes"]:
+                mesh = make_test_mesh(d, m, device=device)
+                run = {}
+                # train() draws these on every rank: the same everywhere
+                gen = torch.Generator(device=dev)
+                gen.manual_seed(0)
+                _same_on_every_rank(build_model(cfg15).init_params(gen),
+                                    "the train params")
+                del gen
+                t = time.perf_counter()
+                # ---- (a) train(..., mesh=) ----------------------------
+                ck = job["ckpt_mesh"] == (d, m)
+                _sync(dev)
+                if on_card:
+                    torch.cuda.reset_peak_memory_stats()
+                rms_kernel.launches = 0
+                before = dict(shared_card.moved)
+                res = train(cfg15, shape, steps=job["steps"],
+                            num_microbatches=job["micro"], mesh=mesh,
+                            checkpointer=checkpointer if ck else None,
+                            checkpoint_every=MESH_CKPT if ck else 0,
+                            device=device)
+                _sync(dev)
+                stage(f"{d}x{m} train, {job['steps']} steps", t)
+                run["train_rms"] = rms_kernel.launches
+                run["train_coll"] = {k: shared_card.moved[k] - before[k]
+                                     for k in ("seconds", "bytes")}
+                run["train_wall"] = time.perf_counter() - t
+                run["losses"] = res.losses
+                run["grad_norms"] = res.grad_norms
+                run["step_s"] = res.step_seconds
+                run["peak_bytes"] = (torch.cuda.max_memory_allocated()
+                                     if on_card else None)
+                leaves = tree_leaves(res.state)
+                run["state_local"] = sum(
+                    x.to_local().numel() * x.element_size() for x in leaves)
+                run["state_whole"] = sum(x.numel() * x.element_size()
+                                         for x in leaves)
+                if ck:
+                    state = full(res.state)       # every rank takes part
+                    saved = state if rank == 0 else None
+                    del state
+                del res, leaves
+                # one step in f32 at reduced depth: the grad norm's check
+                rms_kernel.launches = 0
+                res = train(_f32(cfg15, job), shape, steps=1,
+                            num_microbatches=job["micro"], mesh=mesh,
+                            device=device)
+                run["f32_train"] = {"loss": res.losses[0],
+                                    "grad_norm": res.grad_norms[0],
+                                    "rms": rms_kernel.launches}
+                del res
+                # ---- (b) the prefill and decode cells -----------------
+                for label, (cfg, steps) in _serve_cfgs(job).items():
+                    t = time.perf_counter()
+                    run[label] = serve_on_mesh(dev, mesh, cfg, prompts,
+                                               steps, job["decode_seq"])
+                    stage(f"{d}x{m} serve {label}", t)
+                out["runs"][f"{d}x{m}"] = run
+                if on_card:
+                    torch.cuda.empty_cache()
+        out["kernels"] = check.report()
+    finally:
+        shared_card.release()
+        dist.destroy_process_group()
+    return out, saved
+
+
+def serve_on_mesh(dev, mesh, cfg, prompts, steps: int, seq: int) -> dict:
+    """Qwen3-1.7B's prefill cell (`prompts`, slots x prompt) and `steps`
+    greedy steps of its decode cell (seq_len `seq`, pages of 256) on
+    `mesh`, params from SEED: the prefill's whole logits, the decode's
+    tokens, times and launches."""
+    import torch
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.distributed.sharding import full, place
+    from repro_torch.kernels.paged_attention import kernel as pa_kernel
+    from repro_torch.kernels.rmsnorm import kernel as rms_kernel
+    from repro_torch.launch.steps import build_cell
+    out = {}
+    B, S = prompts.shape
+    pre = build_cell(cfg, ShapeConfig("mesh_prefill", seq_len=S,
+                                      global_batch=B, kind="prefill"),
+                     mesh)
+    dec = build_cell(cfg, ShapeConfig("mesh_decode", seq_len=seq,
+                                      global_batch=B, kind="decode"),
+                     mesh)
+    model = pre["model"]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    params = model.init_params(gen)
+    _same_on_every_rank(params, "the serving params")
+    # the decode cell's cache: the plain prefill, the same on every rank
+    lg, cache = dec["model"].prefill(params, {"tokens": prompts},
+                                     max_len=seq)
+    tok = lg[:, -1].argmax(-1).to(torch.int32)[:, None]
+    p_d = place(params, pre["in_shardings"][0])
+    c_d = place(cache, dec["in_shardings"][2])
+    del params, cache, lg
+    _sync(dev)
+    rms_kernel.launches = 0
+    t = time.perf_counter()
+    logits, pre_cache = pre["fn"](p_d, place({"tokens": prompts},
+                                             pre["in_shardings"][1]))
+    logits = full(logits)
+    _sync(dev)
+    out["prefill_s"] = time.perf_counter() - t
+    out["prefill_rms"] = rms_kernel.launches
+    out["logits"] = logits.float().cpu().numpy()   # numpy: it pickles
+    del pre_cache, logits
+    toks, step_s = [tok[:, 0].cpu()], []
+    rms_kernel.launches = pa_kernel.launches = 0
+    for _ in range(steps):
+        t = time.perf_counter()
+        tok_d, c_d = dec["fn"](p_d, place({"token": tok},
+                                          dec["in_shardings"][1]), c_d)
+        tok = full(tok_d)
+        toks.append(tok[:, 0].cpu())
+        step_s.append(time.perf_counter() - t)
+    out["decode_rms"] = rms_kernel.launches
+    out["decode_paged"] = pa_kernel.launches
+    out["tokens"] = torch.stack(toks, 1).numpy()
+    out["decode_s"] = step_s
+    out["decode_profile"] = profiled(dev, lambda: full(dec["fn"](
+        p_d, place({"token": tok}, dec["in_shardings"][1]), c_d)[0]))
+    return out
+
+
+def mesh_worker(rank, world, init_file, device, job, results) -> None:
+    """A spawned rank of phase 13c: `mesh_rank`, its measurements put on
+    `results`."""
+    results.put(mesh_rank(rank, world, init_file, device, job)[0])
+
+
+def mesh_refs(dev, job, shape) -> dict:
+    """Phase 13c's unsharded path in this process: `train()` straight for
+    MESH_CKPT + 1 steps in bf16, MESH_CKPT steps in f32 (the tolerance's
+    ground) and one step in f32 at reduced depth, and each serving
+    config's plain prefill logits and greedy decode tokens."""
+    import dataclasses
+
+    import torch
+    from repro_torch.launch.train import train
+    from repro_torch.models import build_model
+    refs = {}
+    cfg15 = job["cfg15"]
+    res = train(cfg15, shape, steps=MESH_CKPT + 1,
+                num_microbatches=TRAIN_MICRO, device=dev.type)
+    refs["losses"], refs["step_s"] = res.losses, res.step_seconds
+    refs["grad_norms"] = res.grad_norms
+    del res
+    f32 = train(dataclasses.replace(cfg15, dtype="float32"), shape,
+                steps=MESH_CKPT, num_microbatches=TRAIN_MICRO,
+                device=dev.type)
+    refs["losses_f32"], refs["grad_norms_f32"] = f32.losses, f32.grad_norms
+    f32 = train(_f32(cfg15, job), shape, steps=1,
+                num_microbatches=TRAIN_MICRO, device=dev.type)
+    refs["f32_train"] = {"loss": f32.losses[0],
+                         "grad_norm": f32.grad_norms[0]}
+    del f32
+    prompts = _prompts(dev, job)
+    for label, (cfg, steps) in _serve_cfgs(job).items():
+        model = build_model(cfg)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(SEED)
+        params = model.init_params(gen)
+        _sync(dev)
+        t = time.perf_counter()
+        lg, cache = model.prefill(params, {"tokens": prompts},
+                                  max_len=job["decode_seq"])
+        _sync(dev)
+        prefill_s = time.perf_counter() - t
+        tok = lg[:, -1].argmax(-1).to(torch.int32)[:, None]
+        toks, step_s = [tok[:, 0].cpu()], []
+        for _ in range(steps):
+            t = time.perf_counter()
+            lg2, cache = model.decode_step(params, {"token": tok}, cache)
+            tok = lg2.argmax(-1).to(torch.int32)
+            toks.append(tok[:, 0].cpu())
+            step_s.append(time.perf_counter() - t)
+        refs[label] = {"logits": lg[:, -1:].float().cpu().numpy(),
+                       "tokens": torch.stack(toks, 1).numpy(),
+                       "prefill_s": prefill_s, "decode_s": step_s}
+        del params, cache, lg, lg2
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return refs
+
+
+def mesh_phase(dev, card: str, work: Path, cfg15, cfg3,
+               cells: dict) -> dict:
+    """Phase 13c: `build_cell`'s cells and `train(..., mesh=)` over data
+    = 2 and model = 2, MESH_RANKS processes on the one device (this
+    process is rank 0, the others spawned) in a gloo world; then (d) the
+    (2, 1) run's checkpoint, saved by rank 0, resumed here on a 1 x 1
+    mesh. Returns the kernels' launches and errors."""
+    import queue
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.distributed.sharding import tree_leaves
+    from repro_torch.kernels.rmsnorm import kernel as rms_kernel
+    from repro_torch.kernels.rs_gf256 import kernel as gf_kernel
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.train import make_store_for_checkpoints, train
+    on_card = dev.type == "cuda"
+    shape = ShapeConfig("mesh_train", seq_len=TRAIN_SEQ,
+                        global_batch=TRAIN_BATCH, kind="train")
+    # the spawned ranks get their configs and sizes here (they import
+    # this module afresh)
+    job = {"cfg15": cfg15, "cfg3": cfg3, "meshes": MESH_SHAPES,
+           "ckpt_mesh": MESH_SHAPES[0], "seq": TRAIN_SEQ,
+           "batch": TRAIN_BATCH, "micro": TRAIN_MICRO, "steps": MESH_CKPT,
+           "slots": SLOTS, "prompt": PROMPT, "decode_seq": MESH_DECODE_SEQ,
+           "decode_steps": MESH_DECODE_STEPS, "f32_steps": MESH_F32_STEPS,
+           "f32_layers": MESH_F32_LAYERS}
+    t0 = time.perf_counter()
+    refs = mesh_refs(dev, job, shape)
+    t_refs = time.perf_counter() - t0
+    ck = Checkpointer(make_store_for_checkpoints(device=dev.type))
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    init_file = work / "mesh.init"
+    init_file.unlink(missing_ok=True)
+    procs = [ctx.Process(target=mesh_worker,
+                         args=(r, MESH_RANKS, str(init_file), dev.type,
+                               job, results))
+             for r in range(1, MESH_RANKS)]
+    for p in procs:
+        p.start()
+    gf_kernel.launches = 0
+    try:
+        mine, saved = mesh_rank(0, MESH_RANKS, str(init_file), dev.type,
+                                job, checkpointer=ck)
+        got = [mine]
+        while len(got) < MESH_RANKS:
+            try:
+                got.append(results.get(timeout=5))
+            except queue.Empty:
+                dead = [p.exitcode for p in procs
+                        if p.exitcode not in (None, 0)]
+                assert not dead, f"a rank process failed: {dead}"
+        for p in procs:
+            p.join(timeout=120)
+        assert [p.exitcode for p in procs] == [0] * len(procs), \
+            [p.exitcode for p in procs]
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout=30)
+    gf_save = gf_kernel.launches
+    t_mesh = time.perf_counter() - t0 - t_refs
+    got.sort(key=lambda r: r["rank"])
+    L15, L3 = cfg15.num_layers, cfg3.num_layers
+
+    # ---- (a)-(c): the checks, every rank's ---------------------------
+    # bf16 losses: the mesh run's distance from the unsharded one within
+    # the unsharded bf16 run's own distance from f32 on the same seed and
+    # data (the rounding bf16 already has; the mesh reorders bf16 sums)
+    f32_dist = max(abs(a - b) for a, b in zip(refs["losses"],
+                                              refs["losses_f32"]))
+    ground = max(MESH_LOSS_REL * max(abs(x) for x in refs["losses"]),
+                 f32_dist)
+    f32_ref = refs["f32_train"]
+    per_train = TRAIN_MICRO * (4 * L15 + 1)
+    per_f32 = TRAIN_MICRO * (4 * MESH_F32_LAYERS + 1)
+    print(f"phase 13c all-gather of CUDA tensors through the shared "
+          f"buffers (256 MB per rank): "
+          f"{[round(r['gather_rate'] / 1e9, 3) for r in got]} GB/s of "
+          f"results per rank | {card}")
+    launches = {"rmsnorm": 0, "paged_decode_attention": 0}
+    for d, m in MESH_SHAPES:
+        tag = f"{d}x{m}"
+        runs = [r["runs"][tag] for r in got]
+        r0 = runs[0]
+        assert all(r["losses"] == r0["losses"]
+                   and r["grad_norms"] == r0["grad_norms"] for r in runs), tag
+        diff = max(abs(a - b) for a, b in zip(r0["losses"],
+                                              refs["losses"]))
+        assert diff <= ground, (tag, diff, ground, r0["losses"],
+                                refs["losses"])
+        # AdamW's norm is the global one: in f32 at reduced depth within
+        # MESH_GN_REL of the unsharded run's, the loss within LOSS_TOL
+        ft = [r["f32_train"] for r in runs]
+        assert all((f["loss"], f["grad_norm"])
+                   == (ft[0]["loss"], ft[0]["grad_norm"]) for f in ft), ft
+        gn = abs(ft[0]["grad_norm"] / f32_ref["grad_norm"] - 1)
+        f32_loss = abs(ft[0]["loss"] - f32_ref["loss"])
+        assert gn <= MESH_GN_REL and f32_loss <= LOSS_TOL, \
+            (tag, ft[0], f32_ref)
+        want = (MESH_CKPT * per_train, per_f32) if on_card else (0, 0)
+        assert all((r["train_rms"], r["f32_train"]["rms"]) == want
+                   for r in runs), [r["train_rms"] for r in runs]
+        launches["rmsnorm"] += sum(r["train_rms"] + r["f32_train"]["rms"]
+                                   for r in runs)
+        half = [r["state_local"] / r["state_whole"] for r in runs]
+        gl = r0["train_coll"]
+        print(
+            f"phase 13c train {tag}: {cfg15.name} at published widths and "
+            f"depth, {TRAIN_BATCH} x {TRAIN_SEQ} tokens a step in "
+            f"{TRAIN_MICRO} microbatches, {MESH_CKPT} steps of train(..., "
+            f"mesh=make_test_mesh({d}, {m})): losses "
+            f"{r0['losses']} (equal on every rank); unsharded train() "
+            f"{refs['losses'][:MESH_CKPT]}, diff {diff:.6e} <= {ground:.6e} "
+            f"(the larger of 2^-8 of the loss and the unsharded bf16 run's "
+            f"distance from f32 {f32_dist:.6e}; f32 losses "
+            f"{refs['losses_f32']}); grad norms {r0['grad_norms']} on every "
+            f"rank (unsharded {refs['grad_norms'][:MESH_CKPT]}, f32 "
+            f"{refs['grad_norms_f32']}: not held in bf16, see "
+            f"MESH_GN_REL); one f32 step at {MESH_F32_LAYERS} layers: grad "
+            f"norm {ft[0]['grad_norm']:.6f} vs unsharded "
+            f"{f32_ref['grad_norm']:.6f} (relative {gn:.3e} <= "
+            f"{MESH_GN_REL:g}), loss diff {f32_loss:.3e} (<= {LOSS_TOL:g}); "
+            f"params drawn equal on every rank (digests); step "
+            f"{step_times(r0['step_s'])} (unsharded "
+            f"{step_times(refs['step_s'])}; phase 13a's cell "
+            f"{cells['dry']['train']['median_s'] * 1e3:.3f} ms); each "
+            f"rank's state {[round(h, 4) for h in half]} of the whole "
+            f"{r0['state_whole']} bytes; max_memory_allocated per rank "
+            f"{[r['peak_bytes'] for r in runs]}; RMSNorm launches per "
+            f"rank {[r['train_rms'] for r in runs]} ({per_train} per step)"
+            f"; rank 0 inside the collectives {gl['seconds']:.3f} s of the "
+            f"run's {r0['train_wall']:.3f} s "
+            f"({100 * gl['seconds'] / r0['train_wall']:.2f}%; "
+            f"{gl['bytes']} bytes in the collectives' results) | {card}")
+        for label in ("bf16", "f32"):
+            cfg, steps = _serve_cfgs(job)[label]
+            ref = refs[label]
+            L = cfg.num_layers
+            srv = [r[label] for r in runs]
+            s0 = srv[0]
+            lg_diff = float(np.abs(s0["logits"] - ref["logits"]).max())
+            assert np.isfinite(s0["logits"]).all()
+            same = float((s0["tokens"] == ref["tokens"]).mean())
+            if label == "f32":
+                assert (s0["tokens"] == ref["tokens"]).all(), tag
+            else:
+                assert lg_diff <= MESH_LOGIT_TOL, (tag, lg_diff)
+            assert all((s["tokens"] == s0["tokens"]).all()
+                       for s in srv), tag
+            per_fwd = 4 * L + 1
+            want = (per_fwd, per_fwd * steps, L * steps)
+            for s in srv:
+                have = (s["prefill_rms"], s["decode_rms"],
+                        s["decode_paged"])
+                assert have == (want if on_card else (0, 0, 0)), have
+                launches["rmsnorm"] += s["prefill_rms"] + s["decode_rms"]
+                launches["paged_decode_attention"] += s["decode_paged"]
+            dp = s0["decode_profile"]
+            busy = (f"{100 * dp['device_s'] / dp['wall_s']:.2f}%"
+                    if dp["device_s"] is not None else "not measured")
+            at13a = (f"; phase 13a's cells: prefill "
+                     f"{cells['dry']['prefill']['median_s']:.3f} s, decode "
+                     f"step {cells['dry']['decode']['median_s'] * 1e3:.3f} "
+                     f"ms" if label == "bf16" else "")
+            print(
+                f"phase 13c serve {tag} {label} ({cfg.name}, {L} layers): "
+                f"prefill cell {SLOTS} x {PROMPT} in "
+                f"{[round(s['prefill_s'], 3) for s in srv]} s per rank "
+                f"(unsharded {ref['prefill_s']:.3f} s); last logits vs "
+                f"unsharded max diff {lg_diff:.4e}"
+                f"{' (tol %g)' % MESH_LOGIT_TOL if label == 'bf16' else ''}"
+                f"; decode cell {SLOTS} at {MESH_DECODE_SEQ} (pages of 256)"
+                f", {steps} greedy steps: tokens equal on every "
+                f"rank, {100 * same:.2f}% equal to the unsharded path's"
+                f"{' (asserted)' if label == 'f32' else ''}; step "
+                f"{step_times(s0['decode_s'])} (unsharded "
+                f"{step_times(ref['decode_s'])}{at13a}); launches per rank "
+                f"prefill {s0['prefill_rms']} RMSNorm, decode "
+                f"{s0['decode_rms']} RMSNorm + {s0['decode_paged']} paged; "
+                f"one decode step profiled on rank 0: "
+                f"{dp['wall_s'] * 1e3:.3f} ms, device busy {busy}, inside "
+                f"the collectives {100 * dp['coll_s'] / dp['wall_s']:.2f}% "
+                f"| {card}")
+    # (c) every per-shard kernel call against its plain version
+    errs = {"rmsnorm": 0.0, "paged_decode_attention": 0.0}
+    for r in got:
+        for key, (n, err, ok) in r["kernels"].items():
+            assert ok, (r["rank"], key, err)
+            name = key.split("/")[0]
+            errs[name] = max(errs[name], err)
+    calls = {k: [r["kernels"].get(k, (0,))[0] for r in got]
+             for k in sorted({k for r in got for k in r["kernels"]})}
+    print(
+        f"phase 13c per-shard kernel calls held to the plain version on the "
+        f"same local tensors (RMSNorm atol=rtol {RMS_TOL}, paged "
+        f"{PA_TOL}), calls per rank {json.dumps(calls)}; max_abs_err "
+        f"{json.dumps({k: '%.3e' % v for k, v in errs.items()})} | {card}")
+
+    # ---- (d) elastic restart: the (2, 1) run's checkpoint at 1 x 1 ----
+    assert ck.latest_step() == MESH_CKPT, ck.latest_step()
+    back = tree_leaves(ck.restore(MESH_CKPT, like=saved))
+    n_leaves = len(back)
+    assert all(torch.equal(a, b) for a, b in zip(back, tree_leaves(saved))), \
+        "restored state differs"
+    del back, saved
+    mesh1 = make_test_mesh(1, 1, device=dev.type)
+    gf_kernel.launches = 0
+    rms_kernel.launches = 0
+    res = train(cfg15, shape, steps=MESH_CKPT + 1,
+                num_microbatches=TRAIN_MICRO, checkpointer=ck, resume=True, mesh=mesh1, device=dev.type)
+    gf_restore = gf_kernel.launches
+    assert res.restored_from == MESH_CKPT, res.restored_from
+    resume_diff = abs(res.losses[0] - refs["losses"][MESH_CKPT])
+    assert resume_diff <= ground, (resume_diff, ground)
+    launches["rmsnorm"] += rms_kernel.launches
+    dist.destroy_process_group()
+    assert ck.store.close()
+    del res, ck
+    print(
+        f"phase 13c elastic restart: rank 0 of the data = 2 run saved step "
+        f"{MESH_CKPT} ({n_leaves} leaves, stored whole; GF(256) launches "
+        f"{gf_save}); restored bit-identical to the run's full_tensor()s; "
+        f"train(..., resume=True) on a 1 x 1 mesh: restored_from "
+        f"{MESH_CKPT}, step {MESH_CKPT + 1}'s loss vs the straight run's "
+        f"{resume_diff:.6e} (<= {ground:.6e}, the train runs' bound: the "
+        f"state is the data = 2 run's); GF(256) launches in the "
+        f"resume {gf_restore} | {card}")
+    print(f"phase 13c wall time: {time.perf_counter() - t0:.3f} s "
+          f"(unsharded path {t_refs:.3f} s, {MESH_RANKS} ranks "
+          f"{t_mesh:.3f} s)")
+    if on_card:
+        torch.cuda.empty_cache()
+    return {**launches, "gf256": gf_save + gf_restore, "errs": errs}
+
+
 # ---- slice H, the dry-run over the production meshes: phase 14 ----------
 
 DRY_TOL = 0.01                   # flops: analyzer vs FlopCounterMode
@@ -3864,6 +4517,11 @@ def main(argv=None) -> int:
     print(f"phase 13 wall time {time.perf_counter() - t:.3f} s (13a "
           f"{t_cells:.3f} s)")
 
+    # ---- phase 13c: the cells and train(..., mesh=) over data, model --
+    work.mkdir(parents=True, exist_ok=True)
+    meshes = mesh_phase(dev, card, work, cfg15, get_config(QWEN3), cells)
+    shutil.rmtree(work, ignore_errors=True)
+
     # ---- phase 14: the dry-run over the production meshes -------------
     work.mkdir(parents=True, exist_ok=True)
     dryrun_phase(card, work, {**cells["dry"], **models["dry"]})
@@ -3879,7 +4537,7 @@ def main(argv=None) -> int:
         + counts["degraded_get"] + counts["replay"]
         + serving["gf_evict_launches"] + training["gf_launches"]
         + scale_out["launches"]
-        + models["launches"]["gf256_matmul_bitsliced"],
+        + models["launches"]["gf256_matmul_bitsliced"] + meshes["gf256"],
         "max_abs_err": max_err,
         "ms": enc["ms"],
         "plain_ms": enc["plain_ms"],
@@ -3899,10 +4557,11 @@ def main(argv=None) -> int:
     }] + [dict(
         name=name, route="cuda", source=source, replaces=replaces,
         launches=serving["launches"][name] + models["launches"][name]
-        + cells[name] + (training["rmsnorm_launches"] + pods["rmsnorm"]
-                         if name == "rmsnorm" else 0),
-        max_abs_err=max(checks[name], training["grad_err"]
-                        if name == "rmsnorm" else 0.0,
+        + cells[name] + meshes[name]
+        + (training["rmsnorm_launches"] + pods["rmsnorm"]
+           if name == "rmsnorm" else 0),
+        max_abs_err=max(checks[name], meshes["errs"][name],
+                        training["grad_err"] if name == "rmsnorm" else 0.0,
                         models["rms_d2560"]["max_abs_err"]
                         if name == "rmsnorm" else max(
                             models["pa_err"],

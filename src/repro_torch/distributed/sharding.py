@@ -16,9 +16,11 @@ axes, rule for rule as the reference:
 A `PartitionSpec` has one entry per tensor dim (None, a mesh axis name,
 or a tuple of names); `NamedSharding(mesh, spec).placements` turns it
 into DTensor placements, one per mesh dim. `place` builds DTensors from
-whole tensors by these shardings, and `local` takes their local tensors
-back; the port executes on meshes whose sharded axes are this process's
-own (size 1, or a per-axis region such as the compressed step's pod).
+whole tensors by these shardings, `local` takes their local tensors
+back where every sharded axis is this process's own (size 1, or a
+per-axis region such as the compressed step's pod), and `lay_out` and
+`full` lay out or gather the results of a step run on the DTensors
+themselves, over axes of several ranks.
 Trees are the port's: nested dicts (and tuples) whose leaves are
 tensors, or logical-axis tuples.
 """
@@ -242,7 +244,8 @@ def is_dtensor(x) -> bool:
 
 def _place_one(x, sharding: NamedSharding):
     """This rank's shard of the whole tensor `x`, as a DTensor: no
-    communication (every rank holds the same `x`)."""
+    communication (every rank holds the same `x`). A shard smaller than
+    `x` is a copy, so this rank holds only its part once `x` goes."""
     mesh = sharding.mesh
     dm = mesh.device_mesh
     if dm is None:
@@ -258,6 +261,8 @@ def _place_one(x, sharding: NamedSharding):
                                  f"divide over {n} ranks of "
                                  f"{mesh.axis_names[m]!r}")
             local = local.chunk(n, dim=pl.dim)[coord[m]]
+    if local.numel() < x.numel():
+        local = local.clone()
     return DTensor.from_local(local, dm, placements, run_check=False,
                               shape=x.shape, stride=x.stride())
 
@@ -265,16 +270,35 @@ def _place_one(x, sharding: NamedSharding):
 def place(tree: Any, shardings: Any) -> Any:
     """Whole tensors -> DTensors by `shardings` (a matching tree of
     NamedShardings). Every rank passes the same whole tensors and keeps
-    its own shard of each: the local tensor is a view of the leaf."""
+    its own shard of each: the leaf itself where the shard is whole, else
+    a copy of its part."""
     return tree_map(_place_one, tree, shardings)
+
+
+def lay_out(tree: Any, shardings: Any) -> Any:
+    """Results of a step on DTensors, laid out by `shardings`: a DTensor
+    redistributed to its sharding's placements (partial sums reduced,
+    shards gathered or cut by collectives), a plain tensor (the same on
+    every rank) `place`d."""
+    def one(x, sharding: NamedSharding):
+        if not is_dtensor(x):
+            return _place_one(x, sharding)
+        return _redistributed(x, sharding.placements)
+    return tree_map(one, tree, shardings)
+
+
+def full(tree: Any) -> Any:
+    """The whole tensor of every DTensor leaf (`full_tensor()`: every rank
+    takes part in the gathers); plain tensors pass as they are."""
+    return tree_map(lambda x: x.full_tensor() if is_dtensor(x) else x, tree)
 
 
 def local(tree: Any, manual: Tuple[str, ...] = ()) -> Any:
     """The local tensor of every DTensor leaf (plain tensors pass as they
     are). Raises where a leaf is sharded over a mesh dim larger than one
-    that is not `manual`: this process holds only its shard there, and
-    the port computes on whole tensors (execution over such dims needs
-    DTensor dispatch with rules for the kernels). `manual` names axes
+    that is not `manual`: this process holds only its shard there, which
+    is not the whole tensor (a step over such dims runs on the DTensors,
+    `steps.build_cell`'s fn). `manual` names axes
     whose shards are this process's own data, as the reference's
     `shard_map(axis_names=...)` region does."""
 
@@ -301,12 +325,13 @@ def local(tree: Any, manual: Tuple[str, ...] = ()) -> Any:
 # Model code pins activation shardings via `constrain(x, logical_axes)`;
 # the rules are installed process-globally, for the duration of a cell's
 # `fn` (`installed_rules`), and `constrain` returns x unchanged when no
-# rules are installed or x is a plain tensor. Every executed path
-# computes on plain tensors (`local` takes them out of the DTensors
-# before a step runs, and every kernel refuses a DTensor). DTensors
-# reach model code only in the dry-run (`launch/dryrun.py`), which runs
-# a cell's step on meta DTensors; the helpers below (`zeros`,
-# `on_shards`, `on_locals`) serve the models' DTensor paths there.
+# rules are installed or x is a plain tensor. DTensors reach model code
+# where a cell's arguments are split over a mesh axis of several ranks
+# (its `fn` runs the step on them) and in the dry-run
+# (`launch/dryrun.py`, meta DTensors); on a mesh of one rank a cell
+# computes on plain tensors (`local`). Every kernel refuses a DTensor:
+# the model layer calls it on each rank's local tensors through the
+# helpers below (`on_shards`, `on_locals`; `zeros` for new state).
 
 _RULES: Optional[Dict[str, Axis]] = None
 

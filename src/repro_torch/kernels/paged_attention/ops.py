@@ -2,7 +2,9 @@
 
 A CUDA tensor launches the hand-written Hopper kernels (`kernel.py`); a
 CPU tensor takes the plain PyTorch version (`ref.py`). Any other input
-(a DTensor included) raises — a CUDA tensor never silently falls back to the plain version.
+raises — a CUDA tensor never silently falls back to the plain version.
+A DTensor raises too: the model layer (`models/transformer.py:
+_paged_kernel`) calls this op on each rank's local shards.
 """
 from __future__ import annotations
 

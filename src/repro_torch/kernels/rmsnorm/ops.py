@@ -3,8 +3,10 @@
 A CUDA tensor runs the hand-written Hopper kernel (`kernel.py`) through
 `RMSNormFunction`, which gives it a gradient; a CPU tensor takes the
 plain PyTorch version (`ref.py`), which autograd differentiates. Any
-other input (a DTensor included) raises — a CUDA tensor never silently falls back to the
-plain version.
+other input raises — a CUDA tensor never silently falls back to the
+plain version. A DTensor raises too: the model layer
+(`models/layers.py:rms_norm`) calls this op on each rank's local
+tensors.
 """
 from __future__ import annotations
 

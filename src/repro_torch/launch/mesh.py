@@ -67,6 +67,11 @@ def _device_mesh(shape: Dict[str, int], device: str) -> Mesh:
     if dev.type == "cuda":        # this process's card, not a guess by rank
         torch.cuda.set_device(dev if dev.index is not None
                               else torch.cuda.current_device())
+        if dist.get_backend() == "gloo":
+            # ranks sharing a card: DTensor's collectives through buffers
+            # they share (gloo's TCP is slow, its all-gather fails here)
+            from repro_torch.distributed import shared_card
+            shared_card.install("CUDA")
     from torch.distributed.device_mesh import init_device_mesh
     dm = init_device_mesh(dev.type, tuple(shape.values()),
                           mesh_dim_names=tuple(shape))

@@ -4,31 +4,34 @@ with their in/out shardings; `build_cell` assembles one (arch x shape)
 cell on a mesh.
 
 The JAX package's `launch/steps.py` on torch tensors. A step function
-computes on plain tensors (every kernel takes plain tensors only); a
-cell's `fn` takes the `place`d DTensor arguments, computes on their
-local tensors (`sharding.local`: a sharded mesh axis must be of size 1,
-or the pod axis of the compressed step, whose shards are each pod's own
-part of the batch) and returns DTensors by its out shardings. The
-cell's sharding rules are installed while `fn` runs; the models'
-`constrain` calls pass plain tensors through, so the rules (and the
-compressed step's swap of them) change nothing until DTensors reach
-model code.
+computes on whatever tensors it is given. A cell's `fn` takes the
+`place`d DTensor arguments. Where each is whole on this rank (a mesh of
+one rank, or the compressed step's pod axis, whose shards are each
+pod's own part of the batch) it computes on their local tensors
+(`sharding.local`) and `place`s the results by its out shardings. Where
+an argument is split over an axis of several ranks, the step runs on
+the DTensors themselves: the models' DTensor paths compute on each
+rank's shards (FSDP over `data`, Megatron's projections over `model`,
+the kernels on local tensors), and the results are redistributed to the
+out shardings. The cell's sharding rules are installed while `fn` runs;
+the models' `constrain` calls pass plain tensors through.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.distributed as dist
+from torch.distributed.tensor.experimental import implicit_replication
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig, padded_vocab
 from repro_torch.distributed.sharding import (NamedSharding, PartitionSpec,
                                               Replicate, Shard,
                                               get_global_rules,
                                               installed_rules, is_dtensor,
-                                              local, make_rules, on_locals,
-                                              place, sharding_for,
-                                              tree_shardings)
+                                              lay_out, local, make_rules,
+                                              on_locals, place, sharding_for,
+                                              tree_leaves, tree_shardings)
 from repro_torch.launch import specs as specs_lib
 from repro_torch.models.registry import Model, build_model
 from repro_torch.optim import adamw, compression
@@ -220,13 +223,32 @@ def serve_shardings(model: Model, mesh, shape: ShapeConfig, *,
 # Cell assembly (arch x shape -> step fn + specs + shardings)
 # --------------------------------------------------------------------------
 
+def _split(tree: Any) -> bool:
+    """Whether a DTensor leaf of `tree` is sharded over a mesh dim of
+    several ranks: this rank holds only its shard."""
+    def split(x) -> bool:
+        return is_dtensor(x) and any(
+            isinstance(p, Shard) and x.device_mesh.size(m) > 1
+            for m, p in enumerate(x.placements))
+    return any(split(x) for x in tree_leaves(tree))
+
+
 def _on_mesh(step, out_shardings, rules, manual: Tuple[str, ...] = ()):
-    """`step` over DTensor arguments, under `rules`: their local tensors
-    in, the results `place`d by `out_shardings` out (each result is
-    whole on this rank: replicated, or sharded only over size-1 axes)."""
+    """`step` over DTensor arguments, under `rules`. Where every argument
+    is whole on this rank (sharded only over size-1 or `manual` axes),
+    their local tensors in and the results `place`d by `out_shardings`
+    out. Where one is split over a larger axis, `step` runs on the
+    DTensors themselves (the models' DTensor paths: each rank computes
+    on its shards, the kernels on its local tensors; plain tensors that
+    meet them, such as positions, are the same on every rank and count
+    as replicated), and the results are redistributed to
+    `out_shardings`."""
     def fn(*args):
         with installed_rules(rules):
-            return place(step(*local(args, manual)), out_shardings)
+            if manual or not _split(args):
+                return place(step(*local(args, manual)), out_shardings)
+            with implicit_replication():
+                return lay_out(step(*args), out_shardings)
     return fn
 
 

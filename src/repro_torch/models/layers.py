@@ -4,7 +4,8 @@ attention, decode attention, MLPs and the loss, on torch tensors.
 The same functions as the JAX package's `models/layers.py`, with the
 same layouts and the same order of f32 operations, so both packages
 agree within float rounding. `rms_norm` goes through the RMSNorm op
-(the Hopper kernel for a CUDA tensor, the plain version on the CPU).
+(the Hopper kernel for a CUDA tensor, the plain version on the CPU), on
+each rank's local tensor for a DTensor.
 Prefill attention (`chunked_attention`, `local_chunked_attention`) and
 the contiguous decode attention are plain PyTorch: the reference
 computes them outside any Pallas kernel.
@@ -18,7 +19,9 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed.sharding import constrain, is_dtensor, on_locals
+from repro_torch.distributed.sharding import (Partial, Replicate, Shard,
+                                              constrain, is_dtensor,
+                                              on_locals)
 from repro_torch.kernels.rmsnorm.ops import rms_norm_op
 
 NEG_INF = -1e30
@@ -30,7 +33,30 @@ NEG_INF = -1e30
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor,
              eps: float = 1e-6) -> torch.Tensor:
-    return rms_norm_op(x, scale, eps)
+    """RMSNorm through `rms_norm_op`. A DTensor x normalizes on each
+    rank's own rows (the op on its local tensor: the kernel on the
+    card), its last dim whole on every rank, partial sums reduced
+    first. The replicated scale's
+    gradient is then each rank's sum over its own rows: a partial sum
+    over every mesh dim that splits x. A DTensor split over its last dim
+    (k's head_dim where the kv heads do not divide the model axis) has
+    no per-rank norm and raises, but for the dry-run's meta DTensors,
+    which trace the plain version through DTensor's propagation."""
+    if not is_dtensor(x):
+        return rms_norm_op(x, scale, eps)
+    pl = tuple(x.placements)
+    if any(isinstance(p, Shard) and p.dim == x.dim() - 1 for p in pl):
+        if x.device.type == "meta":
+            return rms_norm_op(x, scale, eps)
+        raise ValueError(f"an RMSNorm over a dim split as {pl}")
+    x_pl = tuple(p if isinstance(p, Shard) else Replicate() for p in pl)
+    whole = (Replicate(),) * len(pl)
+    return on_locals(
+        functools.partial(rms_norm_op, eps=eps), (x, scale),
+        (x_pl, whole), x_pl,
+        in_grad_placements=(x_pl, tuple(
+            Partial() if isinstance(p, Shard) else Replicate()
+            for p in x_pl)))
 
 
 def group_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,

@@ -11,7 +11,8 @@ each layer with `torch.utils.checkpoint` where the reference uses
 `jax.checkpoint`. The MoE FFN is `models/moe.py`'s.
 
 Decode over a paged cache on the card runs the paged decode-attention
-kernel straight on the pool (`decode_step`); on the CPU it keeps the
+kernel straight on the pool (`decode_step`; a DTensor pool on each
+rank's rows and kv heads, `_paged_kernel`); on the CPU it keeps the
 reference's gather into logical order followed by grouped decode
 attention, so the CPU tests match the reference's model.
 """
@@ -151,7 +152,7 @@ def abstract_params(cfg: ModelConfig) -> Dict[str, torch.Tensor]:
 def _proj(x: torch.Tensor, w: torch.Tensor, b=None,
           axes: Optional[Tuple] = None) -> torch.Tensor:
     """einsum("bsd,dhk->bshk") (+ b): (B, S, d) x (d, N, k) -> (B, S, N,
-    k). DTensors (the dry-run) project on each rank's shards
+    k). DTensors project on each rank's shards
     (`_proj_local`), into the layout of the logical `axes` where the
     weight is whole on a mesh dim that they split."""
     if is_dtensor(w):
@@ -162,7 +163,7 @@ def _proj(x: torch.Tensor, w: torch.Tensor, b=None,
 
 
 def _out_proj(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
-    """einsum("bshk,hkd->bsd"). DTensors (the dry-run) project on each
+    """einsum("bshk,hkd->bsd"). DTensors project on each
     rank's shards (`_out_proj_local`)."""
     if is_dtensor(wo):
         return _out_proj_local(o, wo)
@@ -427,7 +428,7 @@ def _layer_params(lyr: Dict[str, torch.Tensor], i: int):
 # --------------------------------------------------------------------------
 
 def embed_tokens(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    """table[tokens]. A DTensor table (the dry-run) looks up Megatron's
+    """table[tokens]. A DTensor table looks up Megatron's
     way, on each rank's own vocab rows (`_vocab_parallel`)."""
     if is_dtensor(table):
         return _vocab_parallel(table, tokens)
@@ -608,7 +609,7 @@ def _gather_pages(pool: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
 
     Returns the logically ordered copy (B, P*ps, K, hd): the plain paged
     read, which the paged decode-attention kernel does without the copy.
-    A DTensor pool (the dry-run) reads on each rank's own shard: its
+    A DTensor pool reads on each rank's own shard: its
     rows, kv heads and head_dim (`_page_local`)."""
     if is_dtensor(pool):
         pl, rows, out = _page_local(pool, 4)
@@ -621,7 +622,7 @@ def _gather_pages(pool: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
 def _scatter_token(pool: torch.Tensor, table: torch.Tensor,
                    pos: torch.Tensor, val: torch.Tensor) -> torch.Tensor:
     """Write val (B, K, hd) at logical position pos into the paged pool,
-    in place; returns the pool. A DTensor pool (the dry-run) is written
+    in place; returns the pool. A DTensor pool is written
     on each rank's own shard (`_page_local`)."""
     if is_dtensor(pool):
         pl, rows, val_pl = _page_local(pool, 3)
@@ -674,6 +675,27 @@ def _grouped_attention(q, k_cache, v_cache, cache_len):
     return L.decode_attention_grouped(q, k_cache, v_cache, cache_len)
 
 
+def _paged_kernel(q, k_pool, v_pool, table, lens):
+    """`paged_decode_attention` (q (B, H, hd), pools (B, P, ps, K, hd)).
+    On DTensors the kernel runs on each rank's own shards: its rows and
+    kv heads of the pools, q's heads of those kv heads (a GQA group's
+    heads are adjacent), the table's and lens' rows; the output laid out
+    as that q. A pool split over head_dim or its pages has no such call
+    (the kernel reduces over whole head_dims and pages) and raises."""
+    if not is_dtensor(k_pool):
+        return paged_decode_attention(q, k_pool, v_pool, table, lens)
+    pl, rows, _ = _page_local(k_pool, 3)
+    if any(isinstance(p, Shard) and p.dim == 4 for p in pl):
+        raise ValueError(f"the paged kernel has no per-shard call on a "
+                         f"pool split over head_dim ({pl}): its kv heads "
+                         f"do not divide the mesh's model axis")
+    q_pl = tuple(Shard(0) if p == Shard(0) else Shard(1) if p == Shard(3)
+                 else Replicate() for p in pl)
+    return on_locals(paged_decode_attention,
+                     (q, k_pool, v_pool, table, lens),
+                     (q_pl, pl, pl, rows, rows), q_pl)
+
+
 def decode_step(cfg: ModelConfig, params, batch, cache, *,
                 spec: CacheSpec):
     """One token of autoregressive decode against the KV cache.
@@ -719,8 +741,7 @@ def decode_step(cfg: ModelConfig, params, batch, cache, *,
             _scatter_token(kc, cache["block_table"], pos, k[:, 0])
             _scatter_token(vc, cache["block_table"], pos, v[:, 0])
             if kernel:
-                out = paged_decode_attention(q[:, 0], kc, vc, table,
-                                             lens)[:, None]
+                out = _paged_kernel(q[:, 0], kc, vc, table, lens)[:, None]
             else:
                 out = _grouped_attention(
                     q, constrain(_gather_pages(kc, cache["block_table"]),

@@ -38,12 +38,13 @@ def _count(device) -> torch.Tensor:
 def adamw_init(params: Params) -> Dict:
     """Zero moments and an f32 copy of every parameter (its own storage,
     even where the parameter is already f32), on the parameters'
-    device."""
+    device; for DTensor parameters, DTensors laid out as they are (each
+    rank allocates only its shards). The count is a plain 0-d tensor."""
     device = next(iter(params.values())).device
     return {
-        "mu": {k: torch.zeros(p.shape, dtype=torch.float32, device=device)
+        "mu": {k: torch.zeros_like(p, dtype=torch.float32)
                for k, p in params.items()},
-        "nu": {k: torch.zeros(p.shape, dtype=torch.float32, device=device)
+        "nu": {k: torch.zeros_like(p, dtype=torch.float32)
                for k, p in params.items()},
         "master": {k: p.detach().to(torch.float32, copy=True)
                    for k, p in params.items()},
