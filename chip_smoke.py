@@ -154,6 +154,7 @@ is not beside this script.
 """
 from __future__ import annotations
 
+import functools
 import json
 import os
 import shutil
@@ -3162,9 +3163,15 @@ def _digest(t) -> tuple:
     import torch
     words = t.detach().contiguous().reshape(-1)
     words = words.view(torch.int16 if t.element_size() == 2
-                       else torch.int32).to(torch.int64)
-    pos = torch.arange(words.numel(), device=words.device) % 65521 + 1
-    return int(words.sum()), int((words * pos).sum())
+                       else torch.int32)
+    first = second = 0
+    step = 1 << 26                  # in parts: a large leaf's int64 copy
+    for i in range(0, words.numel(), step):
+        w = words[i:i + step].to(torch.int64)
+        pos = torch.arange(i, i + w.numel(), device=w.device) % 65521 + 1
+        first += int(w.sum())
+        second += int((w * pos).sum())
+    return first, second
 
 
 def pod_worker(rank: int, world: int, init_file: str, device: str,
@@ -3303,6 +3310,7 @@ def pod_worker(rank: int, world: int, init_file: str, device: str,
     out["dcn_f32"] = compression.dcn_bytes_per_step(local(p_d),
                                                     compressed=False)
     out["n_params"] = sum(t.numel() for t in tree_leaves(local(p_d)))
+    out["leaf_norms"] = _leaf_norms(local(p_d))      # for phase 13d (e)
     out["microbatches"] = n
     results.put(out)
     dist.destroy_process_group()
@@ -3381,15 +3389,18 @@ def pod_phase(dev, card: str, work: Path, cfg15, ref: dict) -> dict:
           f"{r0['dcn_f32']} ({r0['dcn_f32'] / r0['dcn_int8']:.3f}x); "
           f"gathered bytes seen per step and rank {r0['gathered']} "
           f"({POD} x the int8 payloads and scales) | {card}")
-    return {"rmsnorm": sum(r["rmsnorm"] for r in got), "ranks": got}
+    return {"rmsnorm": sum(r["rmsnorm"] for r in got), "ranks": got,
+            "loss_margin": ref["loss_margin"]}
 
 
-# ---- slice J, cells and train(..., mesh=) over data and model: 13c -----
+# ---- slices J and K, cells over data and model: phases 13c and 13d -----
 
 MESH_SHAPES = [(2, 1), (1, 2)]   # (data, model) of phase 13c's runs
 MESH_RANKS = 2                   # processes on the one card
-MESH_DECODE_STEPS = 32           # greedy steps of 13c's bf16 decode cells
-MESH_F32_STEPS = 8               # and of the f32 ones
+# greedy steps of 13c's bf16 decode cells and of the f32 ones (cut to
+# these from 32 and 8 for the script's time, beside phase 13d)
+MESH_DECODE_STEPS = 16
+MESH_F32_STEPS = 4
 MESH_DECODE_SEQ = 2112           # the decode cells' seq_len (pages of 256)
 MESH_F32_LAYERS = 4              # depth of the f32 serving run (of 28)
 MESH_CKPT = CELL_STEPS           # the (2, 1) run's checkpoint step
@@ -3440,10 +3451,13 @@ class ShardKernelCheck:
     RMSNorm op (`layers.rms_norm_op`) and the paged kernel
     (`transformer.paged_decode_attention`), on this rank's local tensors,
     is held to the plain version on the same tensors at phase 6's
-    tolerances (atol = rtol = RMS_TOL, PA_TOL of the dtype). The worst
-    error and the worst excess over |got - want| <= tol (1 + |want|)
-    accumulate on the device, with no sync per call; `report()` reads
-    them."""
+    tolerances (atol = rtol = RMS_TOL, PA_TOL of the dtype); an f32 paged
+    call, as phase 12 holds it (`DecodeAttentionProbe`), to the exact
+    (float64) answer, no farther from it than the f32 plain version or
+    PA_TOL's f32 tolerance times the output's largest magnitude (under a
+    nearly one-hot softmax the f32 plain version itself is off by ~1e-3).
+    The worst error and the worst excess over the bound accumulate on the
+    device, with no sync per call; `report()` reads them."""
 
     def __init__(self):
         from repro_torch.models import layers, transformer
@@ -3451,11 +3465,13 @@ class ShardKernelCheck:
         self.calls, self.err, self.over = {}, {}, {}
 
     def note(self, name, got, want, tol) -> None:
-        import torch
         key = (name, str(got.dtype).split(".")[-1])
         d = (got.detach().float() - want.float()).abs()
-        err = d.max()
-        over = (d - tol[key[1]] * (1 + want.float().abs())).max()
+        self.accumulate(key, d.max(),
+                        (d - tol[key[1]] * (1 + want.float().abs())).max())
+
+    def accumulate(self, key, err, over) -> None:
+        import torch
         self.calls[key] = self.calls.get(key, 0) + 1
         if key in self.err:
             err = torch.maximum(self.err[key], err)
@@ -3479,9 +3495,16 @@ class ShardKernelCheck:
 
         def paged(q, kc, vc, table, lens):
             out = self.paged(q, kc, vc, table, lens)
-            self.note("paged_decode_attention", out,
-                      paged_decode_attention_ref(q, kc, vc, table, lens),
-                      PA_TOL)
+            want = paged_decode_attention_ref(q, kc, vc, table, lens)
+            if q.dtype != torch.float32:
+                self.note("paged_decode_attention", out, want, PA_TOL)
+                return out
+            exact = paged_attention_f64(q, kc, vc, table, lens)
+            err = (out.double() - exact).abs().max()
+            limit = torch.maximum((want.double() - exact).abs().max(),
+                                  PA_TOL["float32"] * exact.abs().max())
+            self.accumulate(("paged_decode_attention", "float32"),
+                            err.float(), (err - limit).float())
             return out
 
         self.layers.rms_norm_op, self.t.paged_decode_attention = rms, paged
@@ -3498,52 +3521,501 @@ class ShardKernelCheck:
                 for k, n in self.calls.items()}
 
 
-def _same_on_every_rank(tree, what: str) -> None:
-    """Every rank holds the same whole tensors: their digests gathered
-    and compared (the ranks draw their params from the same seed, each
-    on its own device generator)."""
-    import torch.distributed as dist
+def _digests(tree) -> list:
     from repro_torch.distributed.sharding import tree_leaves
-    mine = [_digest(t) for t in tree_leaves(tree)]
+    return [_digest(t) for t in tree_leaves(tree)]
+
+
+def _same_on_every_rank(mine: list, what: str) -> None:
+    """Every rank holds the same whole tensors: this rank's `_digests`
+    gathered and compared with every other's (the ranks draw from the
+    same seed, each on its own device generator)."""
+    import torch.distributed as dist
     every = [None] * dist.get_world_size()
     dist.all_gather_object(every, mine)
     assert all(d == mine for d in every), f"{what} differ between ranks"
 
 
-def _f32(cfg, job):
-    """`cfg` in f32 at `job["f32_layers"]` layers (13c's f32 checks)."""
+def _cfg(cfg, layers=None, dtype=None):
+    """`cfg` (a config or its published name) at `layers` and in `dtype`
+    where given."""
     import dataclasses
-    return dataclasses.replace(cfg, num_layers=job["f32_layers"],
-                               dtype="float32")
+    from repro_torch.configs import get_config
+    if isinstance(cfg, str):
+        cfg = get_config(cfg)
+    kw = {}
+    if layers is not None:
+        kw["num_layers"] = layers
+    if dtype is not None:
+        kw["dtype"] = dtype
+    return dataclasses.replace(cfg, **kw) if kw else cfg
 
 
-def _serve_cfgs(job):
-    """{label: (config, decode steps)} of 13c's serving runs."""
-    return {"bf16": (job["cfg3"], job["decode_steps"]),
-            "f32": (_f32(job["cfg3"], job), job["f32_steps"])}
+def serve_runs(label, cfg, meshes, slots, prompt, steps, f32_layers,
+               f32_steps, seq=None, ground=False) -> list:
+    """A serving config's runs on each of `meshes`: as given, and in f32
+    at `f32_layers` layers. A run is its prefill cell (`slots` x
+    `prompt`, params from SEED) and greedy steps of its decode cell at
+    seq_len `seq` (default: just long enough, one more step for the
+    profile); `ground`: its unsharded path also runs an f32 prefill,
+    the ground of the bf16 logits' bound. Runs with the same "ref" share
+    one unsharded path."""
+    runs = []
+    for d, m in meshes:
+        tag = f"{label}" if len(meshes) == 1 else f"{label} {d}x{m}"
+        for dt, c, n in (("bf16", cfg, steps),
+                         ("f32", _cfg(cfg, f32_layers, "float32"),
+                          f32_steps)):
+            runs.append({"key": f"{tag}/{dt}", "ref": f"{label}/{dt}",
+                         "cfg": c, "mesh": (d, m), "slots": slots,
+                         "prompt": prompt, "steps": n,
+                         "seq": seq or prompt + n + 1,
+                         "ground": ground and dt == "bf16"})
+    return runs
 
 
-def _prompts(dev, job):
+def _serve_inputs(dev, cfg, slots: int, prompt: int, steps: int):
+    """Seeded prompts and, for an audio config, each decode step's frame:
+    (prefill batch, list of decode batches or None for greedy tokens)."""
     import numpy as np
     import torch
+    from repro_torch.models.transformer import DTYPES
     rng = np.random.default_rng(SEED)
-    return torch.from_numpy(rng.integers(
-        0, job["cfg3"].vocab_size, (job["slots"], job["prompt"])).astype(
-        np.int32)).to(dev)
+    if cfg.frontend.kind == "audio":
+        frames = torch.from_numpy((0.02 * rng.standard_normal(
+            (slots, prompt + steps, cfg.d_model))).astype(np.float32))
+        frames = frames.to(dev, DTYPES[cfg.dtype])
+        return ({"frame_embeds": frames[:, :prompt]},
+                [{"frame_embed": frames[:, prompt + i:prompt + i + 1]}
+                 for i in range(steps)])
+    toks = rng.integers(0, cfg.vocab_size, (slots, prompt)).astype(np.int32)
+    return {"tokens": torch.from_numpy(toks).to(dev)}, None
+
+
+def _greedy_tok(logits):
+    import torch
+    return logits[:, -1:].argmax(-1).to(torch.int32)
+
+
+def _drawn(dev, model, seed: int):
+    import torch
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    return model.init_params(gen)
+
+
+def _one_at_a_time(fn):
+    """fn() on each rank in turn (the others wait at barriers): whole
+    params are drawn on one rank at a time, so two ranks' copies of a
+    large model never share the card at once."""
+    import torch
+    import torch.distributed as dist
+    out = None
+    for r in range(dist.get_world_size()):
+        if dist.get_rank() == r:
+            out = fn()
+            if torch.cuda.is_available():
+                torch.cuda.empty_cache()
+        dist.barrier()
+    return out
+
+
+def _peak(dev):
+    import torch
+    return torch.cuda.max_memory_allocated() if dev.type == "cuda" else None
+
+
+def _reset_peak(dev) -> None:
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+
+
+def serve_plain(dev, run) -> dict:
+    """The unsharded path on a serving run's inputs: the plain prefill's
+    last logits and RMSNorm launches, the greedy steps' tokens and their
+    times; with run["ground"] also the last logits and tokens of an f32
+    run from the same seed and inputs (how far bf16 itself moves them)."""
+    import torch
+    from repro_torch.kernels.rmsnorm import kernel as rms_kernel
+    from repro_torch.models import build_model
+    cfg, steps = run["cfg"], run["steps"]
+    ground = (serve_plain(dev, dict(run, cfg=_cfg(cfg, dtype="float32"),
+                                    steps=1, ground=False))
+              if run["ground"] else None)
+    model = build_model(cfg)
+    params = _drawn(dev, model, SEED)
+    batch, frames = _serve_inputs(dev, cfg, run["slots"], run["prompt"],
+                                  steps)
+    _sync(dev)
+    rms_kernel.launches = 0
+    t = time.perf_counter()
+    lg, cache = model.prefill(params, batch, max_len=run["seq"])
+    tok = _greedy_tok(lg)
+    _sync(dev)
+    prefill_s = time.perf_counter() - t
+    prefill_rms = rms_kernel.launches
+    toks, step_s = [tok.cpu()], []
+    for i in range(steps):
+        t = time.perf_counter()
+        lg2, cache = model.decode_step(
+            params, frames[i] if frames else {"token": tok}, cache)
+        tok = _greedy_tok(lg2)
+        toks.append(tok.cpu())
+        step_s.append(time.perf_counter() - t)
+    out = {"logits": lg[:, -1:].float().cpu().numpy(),
+           "tokens": torch.cat(toks, 1).numpy(), "prefill_s": prefill_s,
+           "prefill_rms": prefill_rms, "decode_s": step_s,
+           "logits_f32": None if ground is None else ground["logits"],
+           "tokens_f32": None if ground is None else ground["tokens"]}
+    del params, cache, lg
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def serve_on_mesh(dev, mesh, run) -> dict:
+    """A serving run's prefill cell and greedy steps of its decode cell
+    on `mesh` (params from SEED, drawn and laid out one rank at a time,
+    the same on every rank; the decode cell's cache the plain prefill's),
+    one more decode step profiled: the whole last logits, the tokens,
+    times, launches and peak memory."""
+    import torch
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.distributed.sharding import full, place
+    from repro_torch.kernels.paged_attention import kernel as pa_kernel
+    from repro_torch.kernels.rmsnorm import kernel as rms_kernel
+    from repro_torch.launch.steps import build_cell
+    cfg, slots, seq = run["cfg"], run["slots"], run["seq"]
+    pre = build_cell(cfg, ShapeConfig("mesh_prefill", seq_len=run["prompt"],
+                                      global_batch=slots, kind="prefill"),
+                     mesh)
+    dec = build_cell(cfg, ShapeConfig("mesh_decode", seq_len=seq,
+                                      global_batch=slots, kind="decode"),
+                     mesh)
+    batch, frames = _serve_inputs(dev, cfg, slots, run["prompt"],
+                                  run["steps"])
+    _reset_peak(dev)
+
+    def draw():
+        params = _drawn(dev, pre["model"], SEED)
+        lg, cache = dec["model"].prefill(params, batch, max_len=seq)
+        got = (_digests(params), place(params, pre["in_shardings"][0]),
+               place(cache, dec["in_shardings"][2]), _greedy_tok(lg))
+        del params, cache, lg
+        return got
+
+    digests, p_d, c_d, tok = _one_at_a_time(draw)
+    _same_on_every_rank(digests, f"{cfg.name} params")
+    out = {}
+    _sync(dev)
+    rms_kernel.launches = 0
+    t = time.perf_counter()
+    logits, pre_cache = pre["fn"](p_d, place(batch, pre["in_shardings"][1]))
+    logits = full(logits)
+    _sync(dev)
+    out["prefill_s"] = time.perf_counter() - t
+    out["prefill_rms"] = rms_kernel.launches
+    out["logits"] = logits.float().cpu().numpy()   # numpy: it pickles
+    del pre_cache, logits
+    toks, step_s = [tok.cpu()], []
+    rms_kernel.launches = pa_kernel.launches = 0
+    for i in range(run["steps"]):
+        t = time.perf_counter()
+        b = frames[i] if frames else {"token": tok}
+        tok_d, c_d = dec["fn"](p_d, place(b, dec["in_shardings"][1]), c_d)
+        tok = full(tok_d)
+        toks.append(tok.cpu())
+        step_s.append(time.perf_counter() - t)
+    out["decode_rms"] = rms_kernel.launches
+    out["decode_paged"] = pa_kernel.launches
+    out["tokens"] = torch.cat(toks, 1).numpy()
+    out["decode_s"] = step_s
+    b = frames[-1] if frames else {"token": tok}
+    out["decode_profile"] = profiled(dev, lambda: full(dec["fn"](
+        p_d, place(b, dec["in_shardings"][1]), c_d)[0]))
+    out["peak_bytes"] = _peak(dev)
+    return out
+
+
+def cell_plain(dev, run) -> dict:
+    """The unsharded train step on a train cell's inputs: losses, grad
+    norms and step times."""
+    import torch
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.launch.steps import make_train_step
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw
+    cfg = run["cfg"]
+    model = build_model(cfg)
+    params = _drawn(dev, model, SEED)
+    opt = adamw.adamw_init(params)
+    shape = ShapeConfig("mesh_cell", seq_len=run["seq"],
+                        global_batch=run["batch"], kind="train")
+    step = make_train_step(model, adamw.AdamWConfig())
+    out = {"losses": [], "grad_norms": [], "step_s": []}
+    for i in range(run["steps"]):
+        b = {k: torch.from_numpy(v).to(dev) for k, v in make_batch(
+            cfg, shape, step=i, num_microbatches=TRAIN_MICRO).items()}
+        _sync(dev)
+        t = time.perf_counter()
+        params, opt, m = step(params, opt, b)
+        out["losses"].append(float(m["loss"]))
+        out["step_s"].append(time.perf_counter() - t)
+        out["grad_norms"].append(float(m["grad_norm"]))
+    del params, opt
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def cell_on_mesh(dev, mesh, run) -> dict:
+    """`build_cell`'s train cell on `mesh`: params drawn and laid out one
+    rank at a time, the AdamW state made from the placed params (each
+    rank's shards only), the steps on make_batch's batches."""
+    import torch
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.distributed.sharding import full, place, tree_leaves
+    from repro_torch.kernels.rmsnorm import kernel as rms_kernel
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.optim import adamw
+    cfg = run["cfg"]
+    shape = ShapeConfig("mesh_cell", seq_len=run["seq"],
+                        global_batch=run["batch"], kind="train")
+    cell = build_cell(cfg, shape, mesh)
+    in_sh = cell["in_shardings"]
+    _reset_peak(dev)
+
+    def draw():
+        params = _drawn(dev, cell["model"], SEED)
+        return _digests(params), place(params, in_sh[0])
+
+    digests, p_d = _one_at_a_time(draw)
+    _same_on_every_rank(digests, f"{cfg.name} params")
+    o_d = adamw.adamw_init(p_d)
+    n = next(iter(cell["args"][2].values())).shape[0]
+    out = {"losses": [], "grad_norms": [], "step_s": []}
+    rms_kernel.launches = 0
+    for i in range(run["steps"]):
+        b = {k: torch.from_numpy(v).to(dev) for k, v in make_batch(
+            cfg, shape, step=i, num_microbatches=n).items()}
+        _sync(dev)
+        t = time.perf_counter()
+        p_d, o_d, m = cell["fn"](p_d, o_d, place(b, in_sh[2]))
+        m = full(m)
+        out["losses"].append(float(m["loss"]))
+        out["step_s"].append(time.perf_counter() - t)
+        out["grad_norms"].append(float(m["grad_norm"]))
+    out["rms"] = rms_kernel.launches
+    leaves = tree_leaves((p_d, o_d))
+    out["state_local"] = sum(x.to_local().numel() * x.element_size()
+                             for x in leaves)
+    out["state_whole"] = sum(x.numel() * x.element_size() for x in leaves)
+    out["microbatches"] = n
+    out["peak_bytes"] = _peak(dev)
+    return out
+
+
+def _train_shape(run):
+    from repro_torch.configs import ShapeConfig
+    return ShapeConfig("mesh_train", seq_len=run["seq"],
+                       global_batch=run["batch"], kind="train")
+
+
+def train_on_mesh(dev, mesh, run, checkpointer) -> tuple:
+    """`train(..., mesh=)` of a train run (the params it draws checked
+    equal on every rank first); with run["ckpt"] the run checkpoints at
+    its last step through `checkpointer` (rank 0's; None elsewhere) and
+    every rank gathers the whole state. Returns (measurements, the whole
+    state on rank 0 of a checkpointed run, else None)."""
+    import torch.distributed as dist
+    from repro_torch.distributed import shared_card
+    from repro_torch.distributed.sharding import full, tree_leaves
+    from repro_torch.kernels.rmsnorm import kernel as rms_kernel
+    from repro_torch.kernels.rs_gf256 import kernel as gf_kernel
+    from repro_torch.launch.train import train
+    from repro_torch.models import build_model
+    # train() draws these on every rank: the same everywhere
+    _same_on_every_rank(_digests(_drawn(dev, build_model(run["cfg"]), 0)),
+                        "the train params")
+    ck = run["ckpt"]
+    _sync(dev)
+    _reset_peak(dev)
+    rms_kernel.launches = gf_kernel.launches = 0
+    before = dict(shared_card.moved)
+    t = time.perf_counter()
+    res = train(run["cfg"], _train_shape(run), steps=run["steps"],
+                num_microbatches=run["micro"], mesh=mesh,
+                checkpointer=checkpointer if ck else None,
+                checkpoint_every=run["steps"] if ck else 0,
+                device=dev.type)
+    _sync(dev)
+    leaves = tree_leaves(res.state)
+    out = {"losses": res.losses, "grad_norms": res.grad_norms,
+           "step_s": res.step_seconds, "wall": time.perf_counter() - t,
+           "rms": rms_kernel.launches, "gf": gf_kernel.launches,
+           "coll": {k: shared_card.moved[k] - before[k]
+                    for k in ("seconds", "bytes")},
+           "peak_bytes": _peak(dev),
+           "state_local": sum(x.to_local().numel() * x.element_size()
+                              for x in leaves),
+           "state_whole": sum(x.numel() * x.element_size() for x in leaves)}
+    saved = None
+    if ck:
+        state = full(res.state)           # every rank takes part
+        saved = state if dist.get_rank() == 0 else None
+        del state
+    return out, saved
+
+
+def _pods_agree(mesh, tree) -> None:
+    """Every leaf's local shard digested and gathered: the ranks at one
+    place of the mesh without the pod axis hold the same bits in every
+    pod (so the pods' whole tensors are equal, with no gather of
+    them)."""
+    import torch.distributed as dist
+    from repro_torch.distributed.sharding import tree_leaves
+    coord = tuple(mesh.device_mesh.get_coordinate()[1:])   # pod is dim 0
+    mine = (coord, [_digest(x.to_local()) for x in tree_leaves(tree)])
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, mine)
+    for c, d in every:
+        assert c != coord or d == mine[1], \
+            "the pods' params or AdamW state differ"
+
+
+def _leaf_norms(tree) -> list:
+    """Each leaf's f32 norm: a fingerprint of a state to hold two runs'
+    params within a relative bound without moving them."""
+    from repro_torch.distributed.sharding import tree_leaves
+    return [float(t.float().norm()) for t in tree_leaves(tree)]
+
+
+def pods_on_mesh(dev, run) -> dict:
+    """The compressed step on (pod = POD, data = world / POD, model = 1),
+    phase 13b's cell: params from seed 0, the batches `TokenPipeline`'s.
+    Checks on gathered digests that both pods hold bit-identical params
+    and AdamW state (the whole tensors) after every step; returns the
+    losses, times and the whole params' leaf norms."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.data.pipeline import TokenPipeline
+    from repro_torch.distributed.sharding import full, place
+    from repro_torch.kernels.rmsnorm import kernel as rms_kernel
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.optim import adamw
+    cfg, shape = run["cfg"], _train_shape(run)
+    mesh = make_test_mesh(dist.get_world_size() // POD, 1, pod=POD,
+                          device=dev.type)
+    cell = build_cell(cfg, shape, mesh, grad_compress=True)
+    in_sh = cell["in_shardings"]
+    n = cell["args"][2]["tokens"].shape[0]
+    _reset_peak(dev)
+
+    def draw():
+        params = _drawn(dev, cell["model"], 0)
+        opt = adamw.adamw_init(params)
+        opt["err"] = {k: torch.zeros(p.shape, dtype=torch.float32,
+                                     device=dev) for k, p in params.items()}
+        return place(params, in_sh[0]), place(opt, in_sh[1])
+
+    p_d, o_d = _one_at_a_time(draw)
+    init_norms = _leaf_norms(full(p_d))
+    pipe = TokenPipeline(cfg, shape, num_microbatches=n, seed=0)
+    out = {"losses": [], "step_s": [], "grad_norms": []}
+    rms_kernel.launches = 0
+    for _ in range(run["steps"]):
+        b = {k: torch.from_numpy(v).to(dev) for k, v in next(pipe).items()}
+        _sync(dev)
+        t = time.perf_counter()
+        p_d, o_d, m = cell["fn"](p_d, o_d, place(b, in_sh[2]))
+        m = full(m)
+        out["losses"].append(float(m["loss"]))
+        out["step_s"].append(time.perf_counter() - t)
+        out["grad_norms"].append(float(m["grad_norm"]))
+        # both pods' params and AdamW state, bit for bit: each rank's
+        # shards against those of the rank at its place in the other pod
+        _pods_agree(mesh, {"p": p_d, **{k: v for k, v in o_d.items()
+                                        if k != "err"}})
+    out["rms"] = rms_kernel.launches
+    out["leaf_norms"] = _leaf_norms(full(p_d))
+    out["init_norms"] = init_norms
+    out["microbatches"] = n
+    out["peak_bytes"] = _peak(dev)
+    return out
+
+
+def _elastic(dev, run, ck, saved) -> dict:
+    """Rank 0 after the world: a checkpointed train run's state restored
+    bit for bit against the run's `full_tensor()`s, then one more step of
+    `train(..., resume=True)` on a 1 x 1 mesh."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.distributed.sharding import tree_leaves
+    from repro_torch.kernels.rmsnorm import kernel as rms_kernel
+    from repro_torch.kernels.rs_gf256 import kernel as gf_kernel
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.train import train
+    steps = run["steps"]
+    assert ck.latest_step() == steps, ck.latest_step()
+    back = tree_leaves(ck.restore(steps, like=saved))
+    out = {"leaves": len(back), "same": all(
+        torch.equal(a, b) for a, b in zip(back, tree_leaves(saved)))}
+    del back, saved
+    gf_kernel.launches = rms_kernel.launches = 0
+    res = train(run["cfg"], _train_shape(run), steps=steps + 1,
+                num_microbatches=run["micro"], checkpointer=ck, resume=True,
+                mesh=make_test_mesh(1, 1, device=dev.type), device=dev.type)
+    out.update(restored_from=res.restored_from, loss=res.losses[0],
+               gf_restore=gf_kernel.launches, rms=rms_kernel.launches)
+    dist.destroy_process_group()
+    assert ck.store.close()
+    return out
+
+
+def _host_available() -> int:
+    """MemAvailable of /proc/meminfo, in bytes (0 where there is none)."""
+    try:
+        with open("/proc/meminfo") as f:
+            for line in f:
+                if line.startswith("MemAvailable:"):
+                    return int(line.split()[1]) * 1024
+    except OSError:
+        pass
+    return 0
+
+
+def _gather_rate(dev, world: int) -> float:
+    """The collectives' rate on this device: one all-gather of 256 MB per
+    rank (2 MB on the CPU) through the shared buffers, after a warm one
+    (bytes of results a second)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.distributed import shared_card
+    x = torch.zeros((128 if dev.type == "cuda" else 1) * MB,
+                    dtype=torch.bfloat16, device=dev)
+    name = dist.group.WORLD.group_name
+    shared_card.all_gather_into_tensor(x, world, name)
+    _sync(dev)
+    t = time.perf_counter()
+    shared_card.all_gather_into_tensor(x, world, name)
+    _sync(dev)
+    return world * x.numel() * 2 / (time.perf_counter() - t)
 
 
 def mesh_rank(rank: int, world: int, init_file: str, device: str,
-              job: dict, checkpointer=None):
-    """One rank of phase 13c on a gloo world of `world` over `init_file`:
-    for each (data, model) of `job["meshes"]`, (a) `train(...,
-    mesh=make_test_mesh(data, model))` of `job["cfg15"]` (rank 0 passes
-    `checkpointer` on `job["ckpt_mesh"]`, which saves at MESH_CKPT), the
-    time inside the collectives counted; (b) Qwen3-1.7B's prefill
-    cell and greedy steps of its decode cell, bf16 at full depth and f32
-    at `job["f32_layers"]` layers, one more decode step profiled; every
-    kernel call held to its plain
-    version (`ShardKernelCheck`). Returns (this rank's measurements, on
-    rank 0 the whole state saved at the checkpoint, else None)."""
+              job: dict) -> dict:
+    """One rank of phase 13c or 13d (`job["phase"]`) on a gloo world of
+    `world` over `init_file`: the collectives' rate, then the runs of
+    `job` whose mesh has `world` ranks (`serve_on_mesh`, `cell_on_mesh`,
+    `train_on_mesh`; at FAM_FOUR ranks also `pods_on_mesh`), every per-shard
+    kernel call held to its plain version (`ShardKernelCheck`). Rank 0
+    holds the checkpoint store of a checkpointed train run and, once the
+    world is gone, resumes its state on a 1 x 1 mesh (`_elastic`).
+    Returns this rank's measurements."""
     from datetime import timedelta
 
     import torch
@@ -3553,303 +4025,273 @@ def mesh_rank(rank: int, world: int, init_file: str, device: str,
         torch.cuda.set_device(0)
     dist.init_process_group("gloo", init_method=f"file://{init_file}",
                             rank=rank, world_size=world,
-                            timeout=timedelta(seconds=300))
-    from repro_torch.configs import ShapeConfig
+                            timeout=timedelta(seconds=600))
+    from repro_torch.checkpoint import Checkpointer
     from repro_torch.distributed import shared_card
-    from repro_torch.distributed.sharding import full, tree_leaves
-    from repro_torch.kernels.rmsnorm import kernel as rms_kernel
     from repro_torch.launch.mesh import make_test_mesh
-    from repro_torch.launch.train import train
-    from repro_torch.models import build_model
-
-    cfg15 = job["cfg15"]
-    on_card = dev.type == "cuda"
-    out = {"rank": rank, "runs": {}}
-    saved = None
-
-    def stage(what, t):
-        if rank == 0:
-            print(f"phase 13c rank 0: {what} in "
-                  f"{time.perf_counter() - t:.3f} s", flush=True)
-    shape = ShapeConfig("mesh_train", seq_len=job["seq"],
-                        global_batch=job["batch"], kind="train")
-    prompts = _prompts(dev, job)
+    from repro_torch.launch.train import make_store_for_checkpoints
+    out = {"rank": rank, "trains": {}, "cells": {}, "serve": {}}
+    ck = ck_run = saved = None
     check = ShardKernelCheck()
-    try:
-        # the collectives' rate on this device: one all-gather of 256 MB
-        # per rank through the shared buffers, after a warm one
-        x = torch.zeros(128 * MB, dtype=torch.bfloat16, device=dev)
-        name = dist.group.WORLD.group_name
-        shared_card.all_gather_into_tensor(x, world, name)
-        _sync(dev)
-        t = time.perf_counter()
-        shared_card.all_gather_into_tensor(x, world, name)
-        _sync(dev)
-        out["gather_rate"] = world * x.numel() * 2 / (time.perf_counter()
-                                                     - t)
-        del x
-        with check:
-            for d, m in job["meshes"]:
-                mesh = make_test_mesh(d, m, device=device)
-                run = {}
-                # train() draws these on every rank: the same everywhere
-                gen = torch.Generator(device=dev)
-                gen.manual_seed(0)
-                _same_on_every_rank(build_model(cfg15).init_params(gen),
-                                    "the train params")
-                del gen
+
+    def runs(kind):
+        for run in job[kind]:
+            d, m = run["mesh"]
+            if d * m == world:
                 t = time.perf_counter()
-                # ---- (a) train(..., mesh=) ----------------------------
-                ck = job["ckpt_mesh"] == (d, m)
-                _sync(dev)
-                if on_card:
-                    torch.cuda.reset_peak_memory_stats()
-                rms_kernel.launches = 0
                 before = dict(shared_card.moved)
-                res = train(cfg15, shape, steps=job["steps"],
-                            num_microbatches=job["micro"], mesh=mesh,
-                            checkpointer=checkpointer if ck else None,
-                            checkpoint_every=MESH_CKPT if ck else 0,
-                            device=device)
-                _sync(dev)
-                stage(f"{d}x{m} train, {job['steps']} steps", t)
-                run["train_rms"] = rms_kernel.launches
-                run["train_coll"] = {k: shared_card.moved[k] - before[k]
-                                     for k in ("seconds", "bytes")}
-                run["train_wall"] = time.perf_counter() - t
-                run["losses"] = res.losses
-                run["grad_norms"] = res.grad_norms
-                run["step_s"] = res.step_seconds
-                run["peak_bytes"] = (torch.cuda.max_memory_allocated()
-                                     if on_card else None)
-                leaves = tree_leaves(res.state)
-                run["state_local"] = sum(
-                    x.to_local().numel() * x.element_size() for x in leaves)
-                run["state_whole"] = sum(x.numel() * x.element_size()
-                                         for x in leaves)
-                if ck:
-                    state = full(res.state)       # every rank takes part
-                    saved = state if rank == 0 else None
-                    del state
-                del res, leaves
-                # one step in f32 at reduced depth: the grad norm's check
-                rms_kernel.launches = 0
-                res = train(_f32(cfg15, job), shape, steps=1,
-                            num_microbatches=job["micro"], mesh=mesh,
-                            device=device)
-                run["f32_train"] = {"loss": res.losses[0],
-                                    "grad_norm": res.grad_norms[0],
-                                    "rms": rms_kernel.launches}
-                del res
-                # ---- (b) the prefill and decode cells -----------------
-                for label, (cfg, steps) in _serve_cfgs(job).items():
-                    t = time.perf_counter()
-                    run[label] = serve_on_mesh(dev, mesh, cfg, prompts,
-                                               steps, job["decode_seq"])
-                    stage(f"{d}x{m} serve {label}", t)
-                out["runs"][f"{d}x{m}"] = run
-                if on_card:
+                yield run, make_test_mesh(d, m, device=device)
+                out[kind][run["key"]]["coll"] = {
+                    k: shared_card.moved[k] - before[k]
+                    for k in ("seconds", "bytes")}
+                if rank == 0:
+                    print(f"phase {job['phase']} rank 0 of {world}: "
+                          f"{kind} {run['key']} on {d}x{m} in "
+                          f"{time.perf_counter() - t:.3f} s (host memory "
+                          f"available {_host_available()} bytes)",
+                          flush=True)
+                if dev.type == "cuda":
                     torch.cuda.empty_cache()
+
+    try:
+        out["gather_rate"] = _gather_rate(dev, world)
+        with check:
+            for run, mesh in runs("serve"):
+                out["serve"][run["key"]] = serve_on_mesh(dev, mesh, run)
+            for run, mesh in runs("cells"):
+                out["cells"][run["key"]] = cell_on_mesh(dev, mesh, run)
+            # last: rank 0 then holds a checkpointed run's whole state
+            for run, mesh in runs("trains"):
+                if run["ckpt"] and rank == 0:
+                    ck, ck_run = Checkpointer(
+                        make_store_for_checkpoints(device=device)), run
+                out["trains"][run["key"]], state = train_on_mesh(
+                    dev, mesh, run, ck)
+                saved = state if state is not None else saved
+                del state
+            if job["pods"] is not None and world == FAM_FOUR:
+                out["pods"] = pods_on_mesh(dev, job["pods"])
         out["kernels"] = check.report()
     finally:
         shared_card.release()
         dist.destroy_process_group()
-    return out, saved
-
-
-def serve_on_mesh(dev, mesh, cfg, prompts, steps: int, seq: int) -> dict:
-    """Qwen3-1.7B's prefill cell (`prompts`, slots x prompt) and `steps`
-    greedy steps of its decode cell (seq_len `seq`, pages of 256) on
-    `mesh`, params from SEED: the prefill's whole logits, the decode's
-    tokens, times and launches."""
-    import torch
-    from repro_torch.configs import ShapeConfig
-    from repro_torch.distributed.sharding import full, place
-    from repro_torch.kernels.paged_attention import kernel as pa_kernel
-    from repro_torch.kernels.rmsnorm import kernel as rms_kernel
-    from repro_torch.launch.steps import build_cell
-    out = {}
-    B, S = prompts.shape
-    pre = build_cell(cfg, ShapeConfig("mesh_prefill", seq_len=S,
-                                      global_batch=B, kind="prefill"),
-                     mesh)
-    dec = build_cell(cfg, ShapeConfig("mesh_decode", seq_len=seq,
-                                      global_batch=B, kind="decode"),
-                     mesh)
-    model = pre["model"]
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(SEED)
-    params = model.init_params(gen)
-    _same_on_every_rank(params, "the serving params")
-    # the decode cell's cache: the plain prefill, the same on every rank
-    lg, cache = dec["model"].prefill(params, {"tokens": prompts},
-                                     max_len=seq)
-    tok = lg[:, -1].argmax(-1).to(torch.int32)[:, None]
-    p_d = place(params, pre["in_shardings"][0])
-    c_d = place(cache, dec["in_shardings"][2])
-    del params, cache, lg
-    _sync(dev)
-    rms_kernel.launches = 0
-    t = time.perf_counter()
-    logits, pre_cache = pre["fn"](p_d, place({"tokens": prompts},
-                                             pre["in_shardings"][1]))
-    logits = full(logits)
-    _sync(dev)
-    out["prefill_s"] = time.perf_counter() - t
-    out["prefill_rms"] = rms_kernel.launches
-    out["logits"] = logits.float().cpu().numpy()   # numpy: it pickles
-    del pre_cache, logits
-    toks, step_s = [tok[:, 0].cpu()], []
-    rms_kernel.launches = pa_kernel.launches = 0
-    for _ in range(steps):
-        t = time.perf_counter()
-        tok_d, c_d = dec["fn"](p_d, place({"token": tok},
-                                          dec["in_shardings"][1]), c_d)
-        tok = full(tok_d)
-        toks.append(tok[:, 0].cpu())
-        step_s.append(time.perf_counter() - t)
-    out["decode_rms"] = rms_kernel.launches
-    out["decode_paged"] = pa_kernel.launches
-    out["tokens"] = torch.stack(toks, 1).numpy()
-    out["decode_s"] = step_s
-    out["decode_profile"] = profiled(dev, lambda: full(dec["fn"](
-        p_d, place({"token": tok}, dec["in_shardings"][1]), c_d)[0]))
+    if ck is not None:
+        out["elastic"] = _elastic(dev, ck_run, ck, saved)
     return out
 
 
 def mesh_worker(rank, world, init_file, device, job, results) -> None:
-    """A spawned rank of phase 13c: `mesh_rank`, its measurements put on
-    `results`."""
-    results.put(mesh_rank(rank, world, init_file, device, job)[0])
+    """A spawned rank of phase 13c or 13d: `mesh_rank`, its measurements
+    put on `results`."""
+    results.put(mesh_rank(rank, world, init_file, device, job))
 
 
-def mesh_refs(dev, job, shape) -> dict:
-    """Phase 13c's unsharded path in this process: `train()` straight for
-    MESH_CKPT + 1 steps in bf16, MESH_CKPT steps in f32 (the tolerance's
-    ground) and one step in f32 at reduced depth, and each serving
-    config's plain prefill logits and greedy decode tokens."""
-    import dataclasses
-
-    import torch
-    from repro_torch.launch.train import train
-    from repro_torch.models import build_model
-    refs = {}
-    cfg15 = job["cfg15"]
-    res = train(cfg15, shape, steps=MESH_CKPT + 1,
-                num_microbatches=TRAIN_MICRO, device=dev.type)
-    refs["losses"], refs["step_s"] = res.losses, res.step_seconds
-    refs["grad_norms"] = res.grad_norms
-    del res
-    f32 = train(dataclasses.replace(cfg15, dtype="float32"), shape,
-                steps=MESH_CKPT, num_microbatches=TRAIN_MICRO,
-                device=dev.type)
-    refs["losses_f32"], refs["grad_norms_f32"] = f32.losses, f32.grad_norms
-    f32 = train(_f32(cfg15, job), shape, steps=1,
-                num_microbatches=TRAIN_MICRO, device=dev.type)
-    refs["f32_train"] = {"loss": f32.losses[0],
-                         "grad_norm": f32.grad_norms[0]}
-    del f32
-    prompts = _prompts(dev, job)
-    for label, (cfg, steps) in _serve_cfgs(job).items():
-        model = build_model(cfg)
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(SEED)
-        params = model.init_params(gen)
-        _sync(dev)
-        t = time.perf_counter()
-        lg, cache = model.prefill(params, {"tokens": prompts},
-                                  max_len=job["decode_seq"])
-        _sync(dev)
-        prefill_s = time.perf_counter() - t
-        tok = lg[:, -1].argmax(-1).to(torch.int32)[:, None]
-        toks, step_s = [tok[:, 0].cpu()], []
-        for _ in range(steps):
-            t = time.perf_counter()
-            lg2, cache = model.decode_step(params, {"token": tok}, cache)
-            tok = lg2.argmax(-1).to(torch.int32)
-            toks.append(tok[:, 0].cpu())
-            step_s.append(time.perf_counter() - t)
-        refs[label] = {"logits": lg[:, -1:].float().cpu().numpy(),
-                       "tokens": torch.stack(toks, 1).numpy(),
-                       "prefill_s": prefill_s, "decode_s": step_s}
-        del params, cache, lg, lg2
-    if dev.type == "cuda":
-        torch.cuda.empty_cache()
-    return refs
-
-
-def mesh_phase(dev, card: str, work: Path, cfg15, cfg3,
-               cells: dict) -> dict:
-    """Phase 13c: `build_cell`'s cells and `train(..., mesh=)` over data
-    = 2 and model = 2, MESH_RANKS processes on the one device (this
-    process is rank 0, the others spawned) in a gloo world; then (d) the
-    (2, 1) run's checkpoint, saved by rank 0, resumed here on a 1 x 1
-    mesh. Returns the kernels' launches and errors."""
+def spawn_world(dev, work: Path, world: int, job: dict) -> list:
+    """`mesh_rank` on a world of `world` spawned processes (this one only
+    waits, at most FAM_DEADLINE seconds, then stops them all); returns every
+    rank's results in rank order."""
     import queue
 
-    import numpy as np
-    import torch
-    import torch.distributed as dist
     import torch.multiprocessing as mp
-    from repro_torch.checkpoint import Checkpointer
-    from repro_torch.configs import ShapeConfig
-    from repro_torch.distributed.sharding import tree_leaves
-    from repro_torch.kernels.rmsnorm import kernel as rms_kernel
-    from repro_torch.kernels.rs_gf256 import kernel as gf_kernel
-    from repro_torch.launch.mesh import make_test_mesh
-    from repro_torch.launch.train import make_store_for_checkpoints, train
-    on_card = dev.type == "cuda"
-    shape = ShapeConfig("mesh_train", seq_len=TRAIN_SEQ,
-                        global_batch=TRAIN_BATCH, kind="train")
-    # the spawned ranks get their configs and sizes here (they import
-    # this module afresh)
-    job = {"cfg15": cfg15, "cfg3": cfg3, "meshes": MESH_SHAPES,
-           "ckpt_mesh": MESH_SHAPES[0], "seq": TRAIN_SEQ,
-           "batch": TRAIN_BATCH, "micro": TRAIN_MICRO, "steps": MESH_CKPT,
-           "slots": SLOTS, "prompt": PROMPT, "decode_seq": MESH_DECODE_SEQ,
-           "decode_steps": MESH_DECODE_STEPS, "f32_steps": MESH_F32_STEPS,
-           "f32_layers": MESH_F32_LAYERS}
-    t0 = time.perf_counter()
-    refs = mesh_refs(dev, job, shape)
-    t_refs = time.perf_counter() - t0
-    ck = Checkpointer(make_store_for_checkpoints(device=dev.type))
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
-    init_file = work / "mesh.init"
+    init_file = work / f"{job['phase']}_{world}.init"
     init_file.unlink(missing_ok=True)
     procs = [ctx.Process(target=mesh_worker,
-                         args=(r, MESH_RANKS, str(init_file), dev.type,
-                               job, results))
-             for r in range(1, MESH_RANKS)]
+                         args=(r, world, str(init_file), dev.type, job,
+                               results)) for r in range(world)]
     for p in procs:
         p.start()
-    gf_kernel.launches = 0
+    t = time.perf_counter()
+    got = []
     try:
-        mine, saved = mesh_rank(0, MESH_RANKS, str(init_file), dev.type,
-                                job, checkpointer=ck)
-        got = [mine]
-        while len(got) < MESH_RANKS:
+        while len(got) < world:
             try:
                 got.append(results.get(timeout=5))
             except queue.Empty:
                 dead = [p.exitcode for p in procs
                         if p.exitcode not in (None, 0)]
                 assert not dead, f"a rank process failed: {dead}"
+                assert time.perf_counter() - t < FAM_DEADLINE, \
+                    f"{world} ranks still running after {FAM_DEADLINE} s"
         for p in procs:
             p.join(timeout=120)
-        assert [p.exitcode for p in procs] == [0] * len(procs), \
+        assert [p.exitcode for p in procs] == [0] * world, \
             [p.exitcode for p in procs]
     finally:
         for p in procs:
             if p.is_alive():
-                p.terminate()
+                p.kill()
                 p.join(timeout=30)
-    gf_save = gf_kernel.launches
-    t_mesh = time.perf_counter() - t0 - t_refs
     got.sort(key=lambda r: r["rank"])
-    L15, L3 = cfg15.num_layers, cfg3.num_layers
+    return got
 
-    # ---- (a)-(c): the checks, every rank's ---------------------------
+
+def _rows_equal(a, b) -> int:
+    """How many sequences (rows; all codebooks of an audio token) agree."""
+    return int((a == b).reshape(a.shape[0], -1).all(axis=1).sum())
+
+
+def check_serve(phase: str, run: dict, ref: dict, ranks: list, card: str,
+                on_card: bool, launches: dict) -> None:
+    """A serving run's checks against its unsharded path, and its line:
+    the ranks' tokens equal; f32: the last logits within LOGIT_TOL's
+    1e-4 x (1 + their largest magnitude) of the unsharded f32 run's and
+    the tokens equal; bf16: every last logit within the larger of MESH_LOGIT_TOL
+    and twice the distance bf16 itself puts between the unsharded run
+    and an f32 one (where the run has that ground; both bf16 runs sit
+    about that far from the f32 answer, so from each other up to twice
+    it: an MoE's router turns a rounding into another expert); on the
+    card each rank's prefill launching the unsharded prefill's RMSNorms,
+    each decode step as many, and the paged kernel once a layer and
+    step where the family has a paged cache. Adds the launches."""
+    import numpy as np
+    cfg, steps, (d, m) = run["cfg"], run["steps"], run["mesh"]
+    srv = [r["serve"][run["key"]] for r in ranks]
+    s0 = srv[0]
+    key = f"{run['key']} ({d}, {m})"
+    assert all((s["tokens"] == s0["tokens"]).all() for s in srv), key
+    assert np.isfinite(s0["logits"]).all(), key
+    gap = np.abs(s0["logits"] - ref["logits"])
+    lg_diff = float(gap.max())
+    same = float((s0["tokens"] == ref["tokens"]).mean())
+    # the first greedy step's tokens (a miss there is then fed on)
+    first = _rows_equal(s0["tokens"][:, 1], ref["tokens"][:, 1])
+    f32_dist, vs_f32 = 0.0, ""
+    if cfg.dtype == "float32":
+        limit = LOGIT_TOL["float32"] * (1 + float(np.abs(ref["logits"]).max()))
+        assert lg_diff <= limit and (s0["tokens"] == ref["tokens"]).all(), \
+            (key, lg_diff, limit)
+        bound = (f"<= {limit:.4e}, {LOGIT_TOL['float32']:g} x (1 + the "
+                 f"largest |logit|)")
+    else:
+        if ref["logits_f32"] is not None:
+            f32_dist = float(np.abs(ref["logits"]
+                                    - ref["logits_f32"]).max())
+            vs_f32 = (f" (the unsharded bf16 run vs f32 on it: "
+                      f"{_rows_equal(ref['tokens_f32'][:, 1], ref['tokens'][:, 1])}"
+                      f" of {run['slots']})")
+        limit = max(MESH_LOGIT_TOL, 2 * f32_dist)
+        assert lg_diff <= limit, (key, lg_diff, f32_dist)
+        bound = (f"<= {limit:.4e}, the larger of {MESH_LOGIT_TOL:g} and "
+                 f"twice the unsharded bf16 run vs f32, 2 x "
+                 f"{f32_dist:.4e}")
+    paged = cfg.family not in ("ssm", "hybrid")
+    want = ((ref["prefill_rms"], ref["prefill_rms"] * steps,
+             cfg.num_layers * steps * paged) if on_card else (0, 0, 0))
+    assert ref["prefill_rms"] > 0 or not on_card, key
+    for s in srv:
+        have = (s["prefill_rms"], s["decode_rms"], s["decode_paged"])
+        assert have == want, (key, have, want)
+        launches["rmsnorm"] += s["prefill_rms"] + s["decode_rms"]
+        launches["paged_decode_attention"] += s["decode_paged"]
+    dp = s0["decode_profile"]
+    busy = (f"{100 * dp['device_s'] / dp['wall_s']:.2f}%"
+            if dp["device_s"] is not None else "not measured")
+    print(
+        f"phase {phase} serve {run['key']} ({cfg.name}, {cfg.num_layers} "
+        f"layers, mesh ({d}, {m}), {d * m} processes): prefill cell "
+        f"{run['slots']} x {run['prompt']} in "
+        f"{[round(s['prefill_s'], 3) for s in srv]} s per rank (unsharded "
+        f"{ref['prefill_s']:.3f} s); last logits vs unsharded max diff "
+        f"{lg_diff:.4e} ({bound}); decode cell at {run['seq']}, {steps} "
+        f"greedy steps: tokens equal on every rank, {100 * same:.2f}% "
+        f"equal to the unsharded path's"
+        f"{' (asserted)' if cfg.dtype == 'float32' else ''}, the first "
+        f"step's {first} of {run['slots']}{vs_f32}; step "
+        f"{step_times(s0['decode_s'])} (unsharded "
+        f"{step_times(ref['decode_s'])}); launches per rank prefill "
+        f"{s0['prefill_rms']} RMSNorm, decode {s0['decode_rms']} RMSNorm "
+        f"+ {s0['decode_paged']} paged; rank 0 inside the collectives "
+        f"{s0['coll']['seconds']:.3f} s ({s0['coll']['bytes']} bytes); one "
+        f"decode step profiled on rank 0: {dp['wall_s'] * 1e3:.3f} ms, "
+        f"device busy {busy}, inside the collectives "
+        f"{100 * dp['coll_s'] / dp['wall_s']:.2f}%; max_memory_allocated "
+        f"per rank {[s['peak_bytes'] for s in srv]} | {card}")
+
+
+def check_kernels(phase: str, worlds: list, card: str) -> dict:
+    """Every rank's per-shard kernel calls within their tolerances
+    (`ShardKernelCheck`), and their line; returns the worst errors."""
+    errs = {"rmsnorm": 0.0, "paged_decode_attention": 0.0}
+    calls = {}
+    for ranks in worlds:
+        for r in ranks:
+            for key, (n, err, ok) in r["kernels"].items():
+                assert ok, (len(ranks), r["rank"], key, err)
+                name = key.split("/")[0]
+                errs[name] = max(errs[name], err)
+                calls.setdefault(f"{key} ({len(ranks)} processes)",
+                                 []).append(n)
+    rates = [[round(r["gather_rate"] / 1e9, 3) for r in ranks]
+             for ranks in worlds]
+    print(
+        f"phase {phase} per-shard kernel calls held to the plain version on "
+        f"the same local tensors (RMSNorm atol=rtol {RMS_TOL}, paged "
+        f"{PA_TOL}), calls per rank {json.dumps(calls)}; max_abs_err "
+        f"{json.dumps({k: '%.3e' % v for k, v in errs.items()})}; "
+        f"all-gather through the shared buffers (256 MB per rank on the "
+        f"card) {rates} GB/s of results per rank | {card}")
+    return errs
+
+
+def mesh_job(cfg15, cfg3) -> dict:
+    """What the ranks of phase 13c run (the spawned ones import this
+    module afresh, so configs and sizes travel here): per mesh of
+    MESH_SHAPES, `train(..., mesh=)` of `cfg15` for MESH_CKPT steps
+    (checkpointed on the first mesh) and one step in f32 at
+    MESH_F32_LAYERS layers; `cfg3`'s serving runs."""
+    trains = []
+    for d, m in MESH_SHAPES:
+        base = {"mesh": (d, m), "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+                "micro": TRAIN_MICRO}
+        trains += [dict(base, key=f"{d}x{m}", cfg=cfg15, steps=MESH_CKPT,
+                        ckpt=(d, m) == MESH_SHAPES[0]),
+                   dict(base, key=f"{d}x{m}/f32", steps=1, ckpt=False,
+                        cfg=_cfg(cfg15, MESH_F32_LAYERS, "float32"))]
+    return {"phase": "13c", "trains": trains, "cells": [], "pods": None,
+            "serve": serve_runs("qwen3", cfg3, MESH_SHAPES, SLOTS, PROMPT,
+                                MESH_DECODE_STEPS, MESH_F32_LAYERS,
+                                MESH_F32_STEPS, seq=MESH_DECODE_SEQ)}
+
+
+def mesh_phase(dev, card: str, work: Path, cfg15, cfg3,
+               cells: dict) -> dict:
+    """Phase 13c: `build_cell`'s cells and `train(..., mesh=)` over data
+    = 2 and model = 2, MESH_RANKS spawned processes on the one device in
+    a gloo world, held to the unsharded path in this process; then the
+    (2, 1) run's checkpoint, saved by rank 0, resumed there on a 1 x 1
+    mesh. Returns the kernels' launches and errors."""
+    import torch
+    from repro_torch.launch.train import train
+    on_card = dev.type == "cuda"
+    job = mesh_job(cfg15, cfg3)
+    t0 = time.perf_counter()
+    # ---- the unsharded path on the same inputs ------------------------
+    shape = _train_shape(job["trains"][0])
+    res = train(cfg15, shape, steps=MESH_CKPT + 1,
+                num_microbatches=TRAIN_MICRO, device=dev.type)
+    refs = {"losses": res.losses, "step_s": res.step_seconds,
+            "grad_norms": res.grad_norms}
+    res = train(_cfg(cfg15, dtype="float32"), shape, steps=MESH_CKPT,
+                num_microbatches=TRAIN_MICRO, device=dev.type)
+    refs["losses_f32"], refs["grad_norms_f32"] = res.losses, res.grad_norms
+    res = train(job["trains"][1]["cfg"], shape, steps=1,
+                num_microbatches=TRAIN_MICRO, device=dev.type)
+    f32_ref = {"loss": res.losses[0], "grad_norm": res.grad_norms[0]}
+    del res
+    serve = {}
+    for run in job["serve"]:
+        if run["ref"] not in serve:
+            serve[run["ref"]] = serve_plain(dev, run)
+    if on_card:
+        torch.cuda.empty_cache()
+    t_refs = time.perf_counter() - t0
+    got = spawn_world(dev, work, MESH_RANKS, job)
+    t_mesh = time.perf_counter() - t0 - t_refs
+    L15 = cfg15.num_layers
+
+    # ---- the checks, every rank's -------------------------------------
     # bf16 losses: the mesh run's distance from the unsharded one within
     # the unsharded bf16 run's own distance from f32 on the same seed and
     # data (the rounding bf16 already has; the mesh reorders bf16 sums)
@@ -3857,17 +4299,13 @@ def mesh_phase(dev, card: str, work: Path, cfg15, cfg3,
                                               refs["losses_f32"]))
     ground = max(MESH_LOSS_REL * max(abs(x) for x in refs["losses"]),
                  f32_dist)
-    f32_ref = refs["f32_train"]
     per_train = TRAIN_MICRO * (4 * L15 + 1)
     per_f32 = TRAIN_MICRO * (4 * MESH_F32_LAYERS + 1)
-    print(f"phase 13c all-gather of CUDA tensors through the shared "
-          f"buffers (256 MB per rank): "
-          f"{[round(r['gather_rate'] / 1e9, 3) for r in got]} GB/s of "
-          f"results per rank | {card}")
     launches = {"rmsnorm": 0, "paged_decode_attention": 0}
     for d, m in MESH_SHAPES:
         tag = f"{d}x{m}"
-        runs = [r["runs"][tag] for r in got]
+        runs = [r["trains"][tag] for r in got]
+        ft = [r["trains"][f"{tag}/f32"] for r in got]
         r0 = runs[0]
         assert all(r["losses"] == r0["losses"]
                    and r["grad_norms"] == r0["grad_norms"] for r in runs), tag
@@ -3877,20 +4315,19 @@ def mesh_phase(dev, card: str, work: Path, cfg15, cfg3,
                                 refs["losses"])
         # AdamW's norm is the global one: in f32 at reduced depth within
         # MESH_GN_REL of the unsharded run's, the loss within LOSS_TOL
-        ft = [r["f32_train"] for r in runs]
-        assert all((f["loss"], f["grad_norm"])
-                   == (ft[0]["loss"], ft[0]["grad_norm"]) for f in ft), ft
-        gn = abs(ft[0]["grad_norm"] / f32_ref["grad_norm"] - 1)
-        f32_loss = abs(ft[0]["loss"] - f32_ref["loss"])
+        assert all((f["losses"], f["grad_norms"])
+                   == (ft[0]["losses"], ft[0]["grad_norms"]) for f in ft), ft
+        gn = abs(ft[0]["grad_norms"][0] / f32_ref["grad_norm"] - 1)
+        f32_loss = abs(ft[0]["losses"][0] - f32_ref["loss"])
         assert gn <= MESH_GN_REL and f32_loss <= LOSS_TOL, \
-            (tag, ft[0], f32_ref)
+            (tag, ft[0]["losses"], ft[0]["grad_norms"], f32_ref)
         want = (MESH_CKPT * per_train, per_f32) if on_card else (0, 0)
-        assert all((r["train_rms"], r["f32_train"]["rms"]) == want
-                   for r in runs), [r["train_rms"] for r in runs]
-        launches["rmsnorm"] += sum(r["train_rms"] + r["f32_train"]["rms"]
-                                   for r in runs)
+        assert all((r["rms"], f["rms"]) == want for r, f in zip(runs, ft)), \
+            [(r["rms"], f["rms"]) for r, f in zip(runs, ft)]
+        launches["rmsnorm"] += sum(r["rms"] + f["rms"]
+                                   for r, f in zip(runs, ft))
         half = [r["state_local"] / r["state_whole"] for r in runs]
-        gl = r0["train_coll"]
+        gl = r0["coll"]
         print(
             f"phase 13c train {tag}: {cfg15.name} at published widths and "
             f"depth, {TRAIN_BATCH} x {TRAIN_SEQ} tokens a step in "
@@ -3904,7 +4341,7 @@ def mesh_phase(dev, card: str, work: Path, cfg15, cfg3,
             f"rank (unsharded {refs['grad_norms'][:MESH_CKPT]}, f32 "
             f"{refs['grad_norms_f32']}: not held in bf16, see "
             f"MESH_GN_REL); one f32 step at {MESH_F32_LAYERS} layers: grad "
-            f"norm {ft[0]['grad_norm']:.6f} vs unsharded "
+            f"norm {ft[0]['grad_norms'][0]:.6f} vs unsharded "
             f"{f32_ref['grad_norm']:.6f} (relative {gn:.3e} <= "
             f"{MESH_GN_REL:g}), loss diff {f32_loss:.3e} (<= {LOSS_TOL:g}); "
             f"params drawn equal on every rank (digests); step "
@@ -3914,110 +4351,273 @@ def mesh_phase(dev, card: str, work: Path, cfg15, cfg3,
             f"rank's state {[round(h, 4) for h in half]} of the whole "
             f"{r0['state_whole']} bytes; max_memory_allocated per rank "
             f"{[r['peak_bytes'] for r in runs]}; RMSNorm launches per "
-            f"rank {[r['train_rms'] for r in runs]} ({per_train} per step)"
+            f"rank {[r['rms'] for r in runs]} ({per_train} per step)"
             f"; rank 0 inside the collectives {gl['seconds']:.3f} s of the "
-            f"run's {r0['train_wall']:.3f} s "
-            f"({100 * gl['seconds'] / r0['train_wall']:.2f}%; "
+            f"run's {r0['wall']:.3f} s "
+            f"({100 * gl['seconds'] / r0['wall']:.2f}%; "
             f"{gl['bytes']} bytes in the collectives' results) | {card}")
-        for label in ("bf16", "f32"):
-            cfg, steps = _serve_cfgs(job)[label]
-            ref = refs[label]
-            L = cfg.num_layers
-            srv = [r[label] for r in runs]
-            s0 = srv[0]
-            lg_diff = float(np.abs(s0["logits"] - ref["logits"]).max())
-            assert np.isfinite(s0["logits"]).all()
-            same = float((s0["tokens"] == ref["tokens"]).mean())
-            if label == "f32":
-                assert (s0["tokens"] == ref["tokens"]).all(), tag
-            else:
-                assert lg_diff <= MESH_LOGIT_TOL, (tag, lg_diff)
-            assert all((s["tokens"] == s0["tokens"]).all()
-                       for s in srv), tag
-            per_fwd = 4 * L + 1
-            want = (per_fwd, per_fwd * steps, L * steps)
-            for s in srv:
-                have = (s["prefill_rms"], s["decode_rms"],
-                        s["decode_paged"])
-                assert have == (want if on_card else (0, 0, 0)), have
-                launches["rmsnorm"] += s["prefill_rms"] + s["decode_rms"]
-                launches["paged_decode_attention"] += s["decode_paged"]
-            dp = s0["decode_profile"]
-            busy = (f"{100 * dp['device_s'] / dp['wall_s']:.2f}%"
-                    if dp["device_s"] is not None else "not measured")
-            at13a = (f"; phase 13a's cells: prefill "
-                     f"{cells['dry']['prefill']['median_s']:.3f} s, decode "
-                     f"step {cells['dry']['decode']['median_s'] * 1e3:.3f} "
-                     f"ms" if label == "bf16" else "")
-            print(
-                f"phase 13c serve {tag} {label} ({cfg.name}, {L} layers): "
-                f"prefill cell {SLOTS} x {PROMPT} in "
-                f"{[round(s['prefill_s'], 3) for s in srv]} s per rank "
-                f"(unsharded {ref['prefill_s']:.3f} s); last logits vs "
-                f"unsharded max diff {lg_diff:.4e}"
-                f"{' (tol %g)' % MESH_LOGIT_TOL if label == 'bf16' else ''}"
-                f"; decode cell {SLOTS} at {MESH_DECODE_SEQ} (pages of 256)"
-                f", {steps} greedy steps: tokens equal on every "
-                f"rank, {100 * same:.2f}% equal to the unsharded path's"
-                f"{' (asserted)' if label == 'f32' else ''}; step "
-                f"{step_times(s0['decode_s'])} (unsharded "
-                f"{step_times(ref['decode_s'])}{at13a}); launches per rank "
-                f"prefill {s0['prefill_rms']} RMSNorm, decode "
-                f"{s0['decode_rms']} RMSNorm + {s0['decode_paged']} paged; "
-                f"one decode step profiled on rank 0: "
-                f"{dp['wall_s'] * 1e3:.3f} ms, device busy {busy}, inside "
-                f"the collectives {100 * dp['coll_s'] / dp['wall_s']:.2f}% "
-                f"| {card}")
-    # (c) every per-shard kernel call against its plain version
-    errs = {"rmsnorm": 0.0, "paged_decode_attention": 0.0}
-    for r in got:
-        for key, (n, err, ok) in r["kernels"].items():
-            assert ok, (r["rank"], key, err)
-            name = key.split("/")[0]
-            errs[name] = max(errs[name], err)
-    calls = {k: [r["kernels"].get(k, (0,))[0] for r in got]
-             for k in sorted({k for r in got for k in r["kernels"]})}
-    print(
-        f"phase 13c per-shard kernel calls held to the plain version on the "
-        f"same local tensors (RMSNorm atol=rtol {RMS_TOL}, paged "
-        f"{PA_TOL}), calls per rank {json.dumps(calls)}; max_abs_err "
-        f"{json.dumps({k: '%.3e' % v for k, v in errs.items()})} | {card}")
+    for run in job["serve"]:
+        check_serve("13c", run, serve[run["ref"]], got, card, on_card,
+                    launches)
+    errs = check_kernels("13c", [got], card)
 
-    # ---- (d) elastic restart: the (2, 1) run's checkpoint at 1 x 1 ----
-    assert ck.latest_step() == MESH_CKPT, ck.latest_step()
-    back = tree_leaves(ck.restore(MESH_CKPT, like=saved))
-    n_leaves = len(back)
-    assert all(torch.equal(a, b) for a, b in zip(back, tree_leaves(saved))), \
-        "restored state differs"
-    del back, saved
-    mesh1 = make_test_mesh(1, 1, device=dev.type)
-    gf_kernel.launches = 0
-    rms_kernel.launches = 0
-    res = train(cfg15, shape, steps=MESH_CKPT + 1,
-                num_microbatches=TRAIN_MICRO, checkpointer=ck, resume=True, mesh=mesh1, device=dev.type)
-    gf_restore = gf_kernel.launches
-    assert res.restored_from == MESH_CKPT, res.restored_from
-    resume_diff = abs(res.losses[0] - refs["losses"][MESH_CKPT])
+    # ---- elastic restart: the (2, 1) run's checkpoint at 1 x 1 --------
+    el = got[0]["elastic"]
+    assert el["same"], "restored state differs"
+    assert el["restored_from"] == MESH_CKPT, el["restored_from"]
+    resume_diff = abs(el["loss"] - refs["losses"][MESH_CKPT])
     assert resume_diff <= ground, (resume_diff, ground)
-    launches["rmsnorm"] += rms_kernel.launches
-    dist.destroy_process_group()
-    assert ck.store.close()
-    del res, ck
+    launches["rmsnorm"] += el["rms"]
+    gf_save = got[0]["trains"][job["trains"][0]["key"]]["gf"]
     print(
         f"phase 13c elastic restart: rank 0 of the data = 2 run saved step "
-        f"{MESH_CKPT} ({n_leaves} leaves, stored whole; GF(256) launches "
-        f"{gf_save}); restored bit-identical to the run's full_tensor()s; "
-        f"train(..., resume=True) on a 1 x 1 mesh: restored_from "
-        f"{MESH_CKPT}, step {MESH_CKPT + 1}'s loss vs the straight run's "
-        f"{resume_diff:.6e} (<= {ground:.6e}, the train runs' bound: the "
-        f"state is the data = 2 run's); GF(256) launches in the "
-        f"resume {gf_restore} | {card}")
+        f"{MESH_CKPT} ({el['leaves']} leaves, stored whole; GF(256) "
+        f"launches {gf_save}); restored bit-identical to the run's "
+        f"full_tensor()s; train(..., resume=True) on a 1 x 1 mesh: "
+        f"restored_from {MESH_CKPT}, step {MESH_CKPT + 1}'s loss vs the "
+        f"straight run's {resume_diff:.6e} (<= {ground:.6e}, the train "
+        f"runs' bound: the state is the data = 2 run's); GF(256) launches "
+        f"in the resume {el['gf_restore']} | {card}")
     print(f"phase 13c wall time: {time.perf_counter() - t0:.3f} s "
           f"(unsharded path {t_refs:.3f} s, {MESH_RANKS} ranks "
-          f"{t_mesh:.3f} s)")
+          f"{t_mesh:.3f} s); phase 13a's cells for the serving runs: "
+          f"prefill {cells['dry']['prefill']['median_s']:.3f} s, decode "
+          f"step {cells['dry']['decode']['median_s'] * 1e3:.3f} ms")
     if on_card:
         torch.cuda.empty_cache()
-    return {**launches, "gf256": gf_save + gf_restore, "errs": errs}
+    return {**launches, "gf256": gf_save + el["gf_restore"], "errs": errs}
+
+
+GRANITE, MUSICGEN = "granite-moe-1b-a400m", "musicgen-large"
+# phase 13d's serving configs: (label, config, meshes, slots, prompt,
+# steps); RecurrentGemma's prompt + steps cross its 2048-token window
+# (the script's 1200 s: 4 greedy steps where 16 are not asked for)
+FAM_SERVE = [("moe", QWEN_MOE, [(1, 2)], 4, 256, 16),
+             ("rwkv", RWKV6, [(1, 2)], 4, 128, 4),
+             ("rgemma", RGEMMA, [(1, 2), (1, 4)], 2, 2045, 4),
+             ("musicgen", MUSICGEN, [(1, 2)], 4, 128, 4)]
+# the train cells: (label, config, (data, model), layers, batch, seq),
+# each cut in depth for the script's time (RecurrentGemma's 3 layers one
+# recurrent, recurrent, attention unit)
+FAM_TRAIN = [("granite", GRANITE, (1, 2), 8, 4, 1024),
+             ("rwkv", RWKV6, (2, 1), 2, 4, 1024),
+             ("rgemma", RGEMMA, (2, 1), 3, 4, 1024),
+             ("musicgen", MUSICGEN, (2, 1), 4, 4, 1024)]
+FAM_TRAIN_STEPS = 1              # steps of each train cell
+FAM_F32_LAYERS = 2               # depth of the f32 serving runs
+FAM_F32_STEPS = 4                # and their greedy steps
+# Granite's train(..., mesh=(2, 1)) with a checkpoint on rank 0: depth
+FAM_CKPT_LAYERS = 4
+FAM_CKPT_STEPS = 3
+FAM_FOUR = 4                     # processes of the (1, 4) and 2 x 2 runs
+FAM_DEADLINE = 420               # seconds a world may run before it is stopped
+
+
+def fam_job() -> dict:
+    """What the ranks of phase 13d run, at published widths: the serving
+    runs of FAM_SERVE (bf16 at full depth, grounded in an f32 prefill,
+    and f32 at FAM_F32_LAYERS layers), the train cells of FAM_TRAIN,
+    Granite's checkpointed `train(..., mesh=(2, 1))` and the compressed
+    step on pod = 2 x data = 2 (phase 13b's cell)."""
+    serve = []
+    for label, name, meshes, slots, prompt, steps in FAM_SERVE:
+        serve += serve_runs(label, _cfg(name), meshes, slots, prompt, steps,
+                            FAM_F32_LAYERS, FAM_F32_STEPS, ground=True)
+    cells = [{"key": label, "cfg": _cfg(name, layers), "mesh": mesh,
+              "batch": batch, "seq": seq, "steps": FAM_TRAIN_STEPS,
+              "depth": _cfg(name).num_layers}
+             for label, name, mesh, layers, batch, seq in FAM_TRAIN]
+    trains = [{"key": "granite", "cfg": _cfg(GRANITE, FAM_CKPT_LAYERS),
+               "mesh": (2, 1), "batch": TRAIN_BATCH // 2, "seq": TRAIN_SEQ,
+               "micro": TRAIN_MICRO, "steps": FAM_CKPT_STEPS, "ckpt": True}]
+    pods = {"cfg": _cfg(QWEN15), "seq": TRAIN_SEQ, "batch": TRAIN_BATCH,
+            "steps": CELL_STEPS}
+    return {"phase": "13d", "serve": serve, "cells": cells,
+            "trains": trains, "pods": pods}
+
+
+def family_phase(dev, card: str, work: Path, job: dict,
+                 pods13b=None) -> dict:
+    """Phase 13d, `job` (`fam_job()`'s): the MoE, RWKV6, RG-LRU and
+    MusicGen cells over data or model = 2 (two spawned processes on the
+    one device), RecurrentGemma over model = 4 and the compressed step on
+    pod = 2 x data = 2 (four), each held to the unsharded path on the
+    same inputs (in this process first); Granite-MoE's `train(...,
+    mesh=(2, 1))` checkpoint, saved by rank 0, resumed there on 1 x 1.
+    `pods13b`: phase 13b's result and bound (its losses and leaf norms
+    at data = 1). Returns the kernels' launches and errors."""
+    import gc
+
+    import torch
+    from repro_torch.launch.train import train
+    on_card = dev.type == "cuda"
+    # earlier phases' objects can linger in reference cycles (as phase 12
+    # found): collect them before the ranks share the card
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+        print(f"phase 13d start: device memory allocated "
+              f"{torch.cuda.memory_allocated()} bytes, reserved "
+              f"{torch.cuda.memory_reserved()}; host memory available "
+              f"{_host_available()} bytes", flush=True)
+    t0 = time.perf_counter()
+    # ---- the unsharded path on the same inputs ------------------------
+    serve = {}
+    for run in job["serve"]:
+        if run["ref"] not in serve:
+            serve[run["ref"]] = serve_plain(dev, run)
+    cell_refs = {run["key"]: cell_plain(dev, run) for run in job["cells"]}
+    ck_run = job["trains"][0]
+    straight = train(ck_run["cfg"], _train_shape(ck_run),
+                     steps=ck_run["steps"] + 1,
+                     num_microbatches=ck_run["micro"], device=dev.type)
+    if on_card:
+        torch.cuda.empty_cache()
+    t_refs = time.perf_counter() - t0
+    print(f"phase 13d unsharded path in {t_refs:.3f} s", flush=True)
+    # ---- two processes, then four ---------------------------------------
+    t = time.perf_counter()
+    two = spawn_world(dev, work, 2, job)
+    t_two = time.perf_counter() - t
+    t = time.perf_counter()
+    four = spawn_world(dev, work, FAM_FOUR, job)
+    t_four = time.perf_counter() - t
+
+    # ---- the checks and what they print ---------------------------------
+    launches = {"rmsnorm": 0, "paged_decode_attention": 0}
+    for run in job["serve"]:
+        d, m = run["mesh"]
+        check_serve("13d", run, serve[run["ref"]],
+                    two if d * m == 2 else four, card, on_card, launches)
+    for run in job["cells"]:
+        d, m = run["mesh"]
+        ref = cell_refs[run["key"]]
+        runs = [r["cells"][run["key"]] for r in (two if d * m == 2
+                                                 else four)]
+        r0 = runs[0]
+        assert all(r["losses"] == r0["losses"]
+                   and r["grad_norms"] == r0["grad_norms"] for r in runs), \
+            run["key"]
+        cfg = run["cfg"]
+        diffs = [abs(a - b) for a, b in zip(r0["losses"], ref["losses"])]
+        bound = [MESH_LOSS_REL * abs(b) for b in ref["losses"]]
+        assert all(x <= y for x, y in zip(diffs, bound)), (run["key"], diffs,
+                                                           bound)
+        assert not on_card or all(r["rms"] > 0 for r in runs), run["key"]
+        launches["rmsnorm"] += sum(r["rms"] for r in runs)
+        share = [round(r["state_local"] / r["state_whole"], 4) for r in runs]
+        print(
+            f"phase 13d train cell {run['key']} ({cfg.name}, "
+            f"{cfg.num_layers} of {run['depth']} layers, cut "
+            f"for the script's time, mesh ({d}, {m})): {run['batch']} x "
+            f"{run['seq']} tokens a step in {r0['microbatches']} "
+            f"microbatches, {run['steps']} step(s): losses {r0['losses']} "
+            f"(equal on every rank) vs unsharded {ref['losses']}, diffs "
+            f"{[f'{x:.3e}' for x in diffs]} <= 2^-8 of the loss; grad norms "
+            f"{r0['grad_norms']} (unsharded {ref['grad_norms']}; bf16, not "
+            f"held); params drawn equal on every rank (digests); step "
+            f"{step_times(r0['step_s'])} (unsharded "
+            f"{step_times(ref['step_s'])}); each rank's state {share} of "
+            f"the whole {r0['state_whole']} bytes; rank 0 inside the "
+            f"collectives {r0['coll']['seconds']:.3f} s; RMSNorm launches "
+            f"per rank {[r['rms'] for r in runs]}; max_memory_allocated per "
+            f"rank {[r['peak_bytes'] for r in runs]} | {card}")
+    # Granite's train(..., mesh=(2, 1)) and its elastic restart
+    ckr = [r["trains"][ck_run["key"]] for r in two]
+    el = two[0]["elastic"]
+    assert el["same"], "restored state differs"
+    assert el["restored_from"] == ck_run["steps"], el["restored_from"]
+    assert all(c["losses"] == ckr[0]["losses"] for c in ckr)
+    ground = [MESH_LOSS_REL * abs(x) for x in straight.losses]
+    diffs = [abs(a - b) for a, b in zip(ckr[0]["losses"], straight.losses)]
+    assert all(x <= y for x, y in zip(diffs, ground)), (diffs, ground)
+    resume_diff = abs(el["loss"] - straight.losses[ck_run["steps"]])
+    assert resume_diff <= ground[ck_run["steps"]], resume_diff
+    gf_save = ckr[0]["gf"]
+    assert not on_card or (gf_save > 0 and all(c["rms"] > 0 for c in ckr))
+    launches["rmsnorm"] += sum(c["rms"] for c in ckr) + el["rms"]
+    ck_cfg = ck_run["cfg"]
+    print(
+        f"phase 13d Granite train(..., mesh=make_test_mesh(2, 1)) "
+        f"({ck_cfg.name}, {ck_cfg.num_layers} of "
+        f"{_cfg(GRANITE).num_layers} layers: {_state_note(ck_cfg)}), "
+        f"{ck_run['batch']} x {ck_run['seq']} tokens a step, "
+        f"{ck_run['steps']} steps: losses {ckr[0]['losses']} (equal on "
+        f"both ranks) vs train() straight "
+        f"{straight.losses[:ck_run['steps']]}, diffs "
+        f"{[f'{x:.3e}' for x in diffs]} <= 2^-8 of the loss; step "
+        f"{step_times(ckr[0]['step_s'])}; rank 0 saved step "
+        f"{ck_run['steps']} ({el['leaves']} leaves, whole; GF(256) "
+        f"launches {gf_save}), restored bit-identical to the run's "
+        f"full_tensor()s; train(..., resume=True) on 1 x 1: step "
+        f"{ck_run['steps'] + 1}'s loss vs the straight run's "
+        f"{resume_diff:.6e} (GF(256) launches {el['gf_restore']}); "
+        f"max_memory_allocated per rank {[c['peak_bytes'] for c in ckr]} "
+        f"| {card}")
+    # the compressed step on pod = 2 x data = 2
+    pods = [r["pods"] for r in four]
+    p0, pc = pods[0], job["pods"]["cfg"]
+    assert all(p["losses"] == p0["losses"] for p in pods)
+    assert not on_card or all(p["rms"] > 0 for p in pods)
+    launches["rmsnorm"] += sum(p["rms"] for p in pods)
+    vs13b = ""
+    if pods13b is not None:
+        base = pods13b["ranks"][0]
+        margin = pods13b["loss_margin"]
+        ldiff = [abs(a - b) for a, b in zip(p0["losses"], base["losses"])]
+        lbound = [max(margin, MESH_LOSS_REL * abs(b))
+                  for b in base["losses"]]
+        assert all(x <= y for x, y in zip(ldiff, lbound)), (ldiff, lbound)
+        # each param leaf's norm: held at 2^-8 where the init gave it
+        # one; a zero-initialised leaf (the q, k, v biases) is its three
+        # AdamW updates alone, which bf16 reorderings move by percents
+        rel = [(abs(a / b - 1), i) for a, b, i in zip(
+            p0["leaf_norms"], base["leaf_norms"], p0["init_norms"]) if b]
+        held = max(r for r, i in rel if i > 0)
+        free = max((r for r, i in rel if i == 0), default=0.0)
+        assert held <= MESH_LOSS_REL, held
+        vs13b = (f"; vs phase 13b's data = 1 run on the same seed and data: "
+                 f"losses {base['losses']}, diffs "
+                 f"{[f'{x:.3e}' for x in ldiff]} (<= the larger of 13b's "
+                 f"margin {margin:.3e} and 2^-8 of the loss), each param "
+                 f"leaf's norm within {held:.3e} relative (<= 2^-8; the "
+                 f"zero-initialised leaves', their updates alone, within "
+                 f"{free:.3e}, not held)")
+    print(
+        f"phase 13d compressed step on (pod {POD}, data "
+        f"{FAM_FOUR // POD}, model 1), {FAM_FOUR} processes, "
+        f"{pc.name} at {pc.num_layers} layers, {job['pods']['batch']} x "
+        f"{job['pods']['seq']} tokens a step: losses {p0['losses']} (equal "
+        f"on every rank); both pods' params and AdamW state bit-identical "
+        f"after every step (each rank's shards' digests against the other "
+        f"pod's); grad norms {p0['grad_norms']}; step "
+        f"{step_times(p0['step_s'])}{vs13b}; RMSNorm launches per rank "
+        f"{[p['rms'] for p in pods]}; max_memory_allocated per rank "
+        f"{[p['peak_bytes'] for p in pods]} | {card}")
+    errs = check_kernels("13d", [two, four], card)
+    print(f"phase 13d wall time: {time.perf_counter() - t0:.3f} s "
+          f"(unsharded path {t_refs:.3f} s, 2 processes {t_two:.3f} s, "
+          f"{FAM_FOUR} processes {t_four:.3f} s); launches "
+          f"{json.dumps(launches)}")
+    if on_card:
+        torch.cuda.empty_cache()
+    return {**launches, "gf256": gf_save + el["gf_restore"], "errs": errs}
+
+
+def _state_note(cfg) -> str:
+    """The train state's bytes at `cfg`'s depth and at the published one
+    (bf16 params, f32 moments and master copy: 14 bytes a param): why the
+    checkpointed run is cut. Rank 0 holds its half, the whole gathered
+    state and the store's RS(4+2) chunks of it (1.5x) on the card, beside
+    the other rank's half."""
+    from repro_torch.models import build_model
+    n = build_model(cfg).param_count()
+    whole = build_model(_cfg(GRANITE)).param_count()
+    return (f"{n} params, a {14 * n}-byte train state; at the published "
+            f"depth {whole} params, {14 * whole} bytes, so rank 0 would hold "
+            f"{int(3 * 14 * whole)} bytes of state and chunks beside rank "
+            f"1's {7 * whole}, and its save alone would outlast the phase: "
+            f"cut for time and memory")
 
 
 # ---- slice H, the dry-run over the production meshes: phase 14 ----------
@@ -4077,7 +4677,30 @@ def dry_cells() -> None:
                       for k, (arch, shape) in cells.items()}))
 
 
-def dryrun_phase(card: str, work: Path, dry: dict) -> None:
+def start_dryrun(work: Path) -> dict:
+    """Phase 14(a)'s and (b)'s subprocesses, started early at the lowest
+    CPU priority (`nice` 19): they trace on the host's idle cores while
+    phases 13c-13d hold the card, and `dryrun_phase` collects them. Their
+    records go to `work`, which no phase before 14 removes."""
+    work.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    low = functools.partial(os.nice, 19)
+    procs = []
+    for i, (arch, shape, mesh, extra) in enumerate(DRY_CELLS):
+        out = work / f"dryrun_{i}.jsonl"
+        procs.append((out, subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--mesh", mesh, *extra, "--out",
+             str(out)], env=env, cwd=ROOT, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True, preexec_fn=low)))
+    cells_proc = subprocess.Popen(
+        [sys.executable, "-c", "import chip_smoke; chip_smoke.dry_cells()"],
+        env=env, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, preexec_fn=low)
+    return {"procs": procs, "cells": cells_proc, "t": time.perf_counter()}
+
+
+def dryrun_phase(card: str, work: Path, dry: dict, started=None) -> None:
     """Phase 14: (a) `repro_torch.launch.dryrun` over `DRY_CELLS`, each
     record's per-rank memory, flops, bytes and its roofline terms under
     `HW`; (b) phase 13a's cells and phase 12's prefills and MoE decode
@@ -4091,20 +4714,9 @@ def dryrun_phase(card: str, work: Path, dry: dict) -> None:
     import torch
     from repro_torch.launch.dryrun import roofline_terms
     from repro_torch.launch.mesh import HW
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    t = time.perf_counter()
-    procs = []
-    for i, (arch, shape, mesh, extra) in enumerate(DRY_CELLS):
-        out = work / f"dryrun_{i}.jsonl"
-        procs.append((out, subprocess.Popen(
-            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-             arch, "--shape", shape, "--mesh", mesh, *extra, "--out",
-             str(out)], env=env, cwd=ROOT, stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True)))
-    cells_proc = subprocess.Popen(
-        [sys.executable, "-c", "import chip_smoke; chip_smoke.dry_cells()"],
-        env=env, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-        text=True)
+    started = started or start_dryrun(work)
+    procs, cells_proc, t = started["procs"], started["cells"], started["t"]
+    waited = time.perf_counter()
     recs = []
     for out, proc in procs:
         log, _ = proc.communicate(timeout=600)
@@ -4166,8 +4778,9 @@ def dryrun_phase(card: str, work: Path, dry: dict) -> None:
               f"{c['median_s'] * 1e3:.3f} ms = {bound_s / c['median_s']:.4f}"
               f"{peak} | {card}")
         assert ok, (kind, check)
-    print(f"phase 14 wall time {time.perf_counter() - t:.3f} s (the "
-          f"dry-runs and the 1 x 1 trace in {wall:.3f} s, in parallel)")
+    print(f"phase 14 wall time {time.perf_counter() - waited:.3f} s after "
+          f"phase 13d (the dry-runs and the 1 x 1 trace, started at nice "
+          f"19 before phase 13c, in {wall:.3f} s, in parallel)")
 
 
 def main(argv=None) -> int:
@@ -4517,15 +5130,32 @@ def main(argv=None) -> int:
     print(f"phase 13 wall time {time.perf_counter() - t:.3f} s (13a "
           f"{t_cells:.3f} s)")
 
-    # ---- phase 13c: the cells and train(..., mesh=) over data, model --
-    work.mkdir(parents=True, exist_ok=True)
-    meshes = mesh_phase(dev, card, work, cfg15, get_config(QWEN3), cells)
-    shutil.rmtree(work, ignore_errors=True)
+    # phase 14's traces start here, on the host's idle cores
+    dry_work = ROOT / "build" / "repro_torch" / "dryrun"
+    shutil.rmtree(dry_work, ignore_errors=True)
+    dry_started = start_dryrun(dry_work)
+    try:
+        # ---- phase 13c: the cells and train(..., mesh=) over data, model
+        work.mkdir(parents=True, exist_ok=True)
+        meshes = mesh_phase(dev, card, work, cfg15, get_config(QWEN3), cells)
+        shutil.rmtree(work, ignore_errors=True)
 
-    # ---- phase 14: the dry-run over the production meshes -------------
-    work.mkdir(parents=True, exist_ok=True)
-    dryrun_phase(card, work, {**cells["dry"], **models["dry"]})
-    shutil.rmtree(work, ignore_errors=True)
+        # ---- phase 13d: the other families over data, model; pods x data
+        work.mkdir(parents=True, exist_ok=True)
+        families = family_phase(dev, card, work, fam_job(), pods)
+        shutil.rmtree(work, ignore_errors=True)
+        torch.cuda.empty_cache()
+
+        # ---- phase 14: the dry-run over the production meshes ---------
+        dryrun_phase(card, dry_work, {**cells["dry"], **models["dry"]},
+                     dry_started)
+    finally:
+        for proc in [p for _, p in dry_started["procs"]] \
+                + [dry_started["cells"]]:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    shutil.rmtree(dry_work, ignore_errors=True)
 
     enc = timing["encode (2,10)"]
     print(json.dumps({"kernels": [{
@@ -4537,7 +5167,8 @@ def main(argv=None) -> int:
         + counts["degraded_get"] + counts["replay"]
         + serving["gf_evict_launches"] + training["gf_launches"]
         + scale_out["launches"]
-        + models["launches"]["gf256_matmul_bitsliced"] + meshes["gf256"],
+        + models["launches"]["gf256_matmul_bitsliced"] + meshes["gf256"]
+        + families["gf256"],
         "max_abs_err": max_err,
         "ms": enc["ms"],
         "plain_ms": enc["plain_ms"],
@@ -4557,10 +5188,11 @@ def main(argv=None) -> int:
     }] + [dict(
         name=name, route="cuda", source=source, replaces=replaces,
         launches=serving["launches"][name] + models["launches"][name]
-        + cells[name] + meshes[name]
+        + cells[name] + meshes[name] + families[name]
         + (training["rmsnorm_launches"] + pods["rmsnorm"]
            if name == "rmsnorm" else 0),
         max_abs_err=max(checks[name], meshes["errs"][name],
+                        families["errs"][name],
                         training["grad_err"] if name == "rmsnorm" else 0.0,
                         models["rms_d2560"]["max_abs_err"]
                         if name == "rmsnorm" else max(

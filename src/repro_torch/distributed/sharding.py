@@ -20,7 +20,9 @@ whole tensors by these shardings, `local` takes their local tensors
 back where every sharded axis is this process's own (size 1, or a
 per-axis region such as the compressed step's pod), and `lay_out` and
 `full` lay out or gather the results of a step run on the DTensors
-themselves, over axes of several ranks.
+themselves, over axes of several ranks. Beside such a manual axis,
+`per_pod` views a DTensor over the mesh without it and `from_pod` lays
+the region's results out on the full mesh again.
 Trees are the port's: nested dicts (and tuples) whose leaves are
 tensors, or logical-axis tuples.
 """
@@ -293,14 +295,69 @@ def full(tree: Any) -> Any:
     return tree_map(lambda x: x.full_tensor() if is_dtensor(x) else x, tree)
 
 
+def per_pod(x, manual: Tuple[str, ...]):
+    """A DTensor over the full mesh -> the same local tensor as a DTensor
+    over the mesh without the `manual` axes: the per-pod region's view,
+    as the reference's `shard_map(axis_names=manual)` gives its body
+    (this process's shard over a manual axis is its own whole tensor;
+    the other axes stay DTensor axes). Plain tensors pass as they
+    are."""
+    if not is_dtensor(x):
+        return x
+    dm = x.device_mesh
+    names = dm.mesh_dim_names
+    keep = tuple(n for n in names if n not in manual)
+    shape = list(x.shape)
+    for m, pl in enumerate(x.placements):
+        if names[m] in manual and isinstance(pl, Shard):
+            shape[pl.dim] //= dm.size(m)
+    placements = [pl for m, pl in enumerate(x.placements)
+                  if names[m] not in manual]
+    return DTensor.from_local(x.to_local(), dm[keep], placements,
+                              run_check=False, shape=torch.Size(shape),
+                              stride=contiguous_stride(shape))
+
+
+def pod_laid_out(x, sharding: NamedSharding, manual: Tuple[str, ...]):
+    """A result of the per-pod region (a DTensor over the mesh without the
+    `manual` axes, `per_pod`) redistributed there to `sharding`'s
+    placements with the manual axes' entries dropped."""
+    if not is_dtensor(x):
+        return x
+    dm = x.device_mesh
+    spec = PartitionSpec(*(tuple(a for a in _names(e) if a not in manual)
+                           for e in sharding.spec))
+    return _redistributed(x, _placements(spec, dm.mesh_dim_names))
+
+
+def from_pod(x, sharding: NamedSharding, manual: Tuple[str, ...]):
+    """The inverse of `per_pod`: a result of the per-pod region laid out
+    by `sharding` on the full mesh, this process's local tensor kept as
+    its shard (`pod_laid_out` first, then no communication: a tensor
+    replicated over a manual axis is the same on every pod, one split
+    over it is each pod's own part). A plain result is `place`d."""
+    if not is_dtensor(x):
+        return _place_one(x, sharding)
+    x = pod_laid_out(x, sharding, manual)
+    dm = sharding.mesh.device_mesh
+    shape = list(x.shape)
+    for m, pl in enumerate(sharding.placements):
+        if dm.mesh_dim_names[m] in manual and isinstance(pl, Shard):
+            shape[pl.dim] *= dm.size(m)
+    return DTensor.from_local(x.to_local(), dm, sharding.placements,
+                              run_check=False, shape=torch.Size(shape),
+                              stride=contiguous_stride(shape))
+
+
 def local(tree: Any, manual: Tuple[str, ...] = ()) -> Any:
     """The local tensor of every DTensor leaf (plain tensors pass as they
     are). Raises where a leaf is sharded over a mesh dim larger than one
     that is not `manual`: this process holds only its shard there, which
     is not the whole tensor (a step over such dims runs on the DTensors,
-    `steps.build_cell`'s fn). `manual` names axes
-    whose shards are this process's own data, as the reference's
-    `shard_map(axis_names=...)` region does."""
+    or beside manual axes on their per-pod view, `per_pod`: see
+    `steps.build_cell`'s fn). `manual` names axes whose shards are this
+    process's own data, as the reference's `shard_map(axis_names=...)`
+    region does."""
 
     def one(x):
         if not is_dtensor(x):

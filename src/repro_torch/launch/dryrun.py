@@ -35,15 +35,14 @@ from pathlib import Path
 from typing import Any, Dict, Tuple
 
 import torch
-from torch.distributed.tensor import DTensor, Shard
+from torch.distributed.tensor import DTensor
 
 from repro_torch.analysis.hlo import analyze
 from repro_torch.configs import (ARCH_NAMES, SHAPES_BY_NAME, get_config,
                                  shapes_for)
 from repro_torch.configs.base import ShapeConfig, padded_vocab
-from repro_torch.distributed.sharding import (NamedSharding, PartitionSpec,
-                                              _placements, contiguous_stride,
-                                              installed_rules, is_dtensor,
+from repro_torch.distributed.sharding import (NamedSharding, installed_rules,
+                                              pod_laid_out, per_pod,
                                               tree_leaves, tree_map)
 from repro_torch.launch import specs as specs_lib
 from repro_torch.launch.mesh import (HW, init_fake_world,
@@ -96,41 +95,6 @@ def _meta_dtensor(x: torch.Tensor, sharding: NamedSharding):
                               shape=x.shape, stride=x.stride())
 
 
-def _per_pod(x, manual: Tuple[str, ...]):
-    """A DTensor over the full mesh -> the same local tensor over the
-    mesh without the `manual` axes: the per-pod region's view, as the
-    reference's `shard_map(axis_names=manual)` gives its body."""
-    dm = x.device_mesh
-    names = dm.mesh_dim_names
-    keep = tuple(n for n in names if n not in manual)
-    shape = list(x.shape)
-    for m, pl in enumerate(x.placements):
-        if names[m] in manual and isinstance(pl, Shard):
-            shape[pl.dim] //= dm.size(m)
-    placements = [pl for m, pl in enumerate(x.placements)
-                  if names[m] not in manual]
-    return DTensor.from_local(x.to_local(), dm[keep], placements,
-                              run_check=False, shape=torch.Size(shape),
-                              stride=contiguous_stride(shape))
-
-
-def _to_sharding(x, sharding: NamedSharding, manual: Tuple[str, ...]):
-    """An output redistributed to its out sharding (on the mesh it was
-    computed on: the manual axes' entries dropped)."""
-    if not is_dtensor(x):
-        return x
-    dm = x.device_mesh
-    spec = PartitionSpec(*(
-        None if e is None else tuple(
-            a for a in ((e,) if isinstance(e, str) else e)
-            if a not in manual)
-        for e in sharding.spec))
-    placements = _placements(spec, dm.mesh_dim_names)
-    if tuple(x.placements) == placements:
-        return x
-    return x.redistribute(dm, placements)
-
-
 def trace_cell(cell: Dict, *, pod_stride: int):
     """Run the cell's step on meta DTensors under its rules and count it:
     returns the `HloAnalysis` (its `result` the step's outputs)."""
@@ -138,12 +102,12 @@ def trace_cell(cell: Dict, *, pod_stride: int):
     manual = cell["manual"]
     args = tree_map(_meta_dtensor, cell["args"], cell["in_shardings"])
     if manual:
-        args = tree_map(lambda x: _per_pod(x, manual), args)
+        args = tree_map(lambda x: per_pod(x, manual), args)
 
     def run(*a):
         with installed_rules(cell["rules"]), implicit_replication():
             out = cell["step"](*a)
-            return tree_map(lambda x, sh: _to_sharding(x, sh, manual), out,
+            return tree_map(lambda x, sh: pod_laid_out(x, sh, manual), out,
                             cell["out_shardings"])
 
     return analyze(run, *args, pod_stride=pod_stride)

@@ -6,15 +6,19 @@ cell on a mesh.
 The JAX package's `launch/steps.py` on torch tensors. A step function
 computes on whatever tensors it is given. A cell's `fn` takes the
 `place`d DTensor arguments. Where each is whole on this rank (a mesh of
-one rank, or the compressed step's pod axis, whose shards are each
-pod's own part of the batch) it computes on their local tensors
-(`sharding.local`) and `place`s the results by its out shardings. Where
-an argument is split over an axis of several ranks, the step runs on
-the DTensors themselves: the models' DTensor paths compute on each
-rank's shards (FSDP over `data`, Megatron's projections over `model`,
-the kernels on local tensors), and the results are redistributed to the
-out shardings. The cell's sharding rules are installed while `fn` runs;
-the models' `constrain` calls pass plain tensors through.
+one rank, or a mesh split only over the compressed step's pod axis,
+whose shards are each pod's own part of the batch) it computes on their
+local tensors (`sharding.local`) and `place`s the results by its out
+shardings. Where an argument is split over an axis of several ranks,
+the step runs on the DTensors themselves: the models' DTensor paths
+compute on each rank's shards (FSDP over `data`, Megatron's projections
+over `model`, the kernels on local tensors), and the results are
+redistributed to the out shardings. The compressed step with such an
+axis beside its pod axis runs on each argument's per-pod view (the
+DTensor over the mesh without the pod axis, `sharding.per_pod`), as the
+reference's `shard_map` region over the pod axis does. The cell's
+sharding rules are installed while `fn` runs; the models' `constrain`
+calls pass plain tensors through.
 """
 from __future__ import annotations
 
@@ -26,12 +30,13 @@ from torch.distributed.tensor.experimental import implicit_replication
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig, padded_vocab
 from repro_torch.distributed.sharding import (NamedSharding, PartitionSpec,
-                                              Replicate, Shard,
+                                              Replicate, Shard, from_pod,
                                               get_global_rules,
                                               installed_rules, is_dtensor,
                                               lay_out, local, make_rules,
-                                              on_locals, place, sharding_for,
-                                              tree_leaves, tree_shardings)
+                                              on_locals, per_pod, place,
+                                              sharding_for, tree_leaves,
+                                              tree_map, tree_shardings)
 from repro_torch.launch import specs as specs_lib
 from repro_torch.models.registry import Model, build_model
 from repro_torch.optim import adamw, compression
@@ -223,14 +228,16 @@ def serve_shardings(model: Model, mesh, shape: ShapeConfig, *,
 # Cell assembly (arch x shape -> step fn + specs + shardings)
 # --------------------------------------------------------------------------
 
-def _split(tree: Any) -> bool:
+def _split(tree: Any, manual: Tuple[str, ...] = ()) -> bool:
     """Whether a DTensor leaf of `tree` is sharded over a mesh dim of
-    several ranks: this rank holds only its shard."""
+    several ranks other than the `manual` ones: this rank holds only its
+    shard."""
     def split(x) -> bool:
-        return is_dtensor(x) and any(
-            isinstance(p, Shard) and x.device_mesh.size(m) > 1
-            for m, p in enumerate(x.placements))
-    return any(split(x) for x in tree_leaves(tree))
+        names = x.device_mesh.mesh_dim_names
+        return any(isinstance(p, Shard) and x.device_mesh.size(m) > 1
+                   and names[m] not in manual
+                   for m, p in enumerate(x.placements))
+    return any(is_dtensor(x) and split(x) for x in tree_leaves(tree))
 
 
 def _on_mesh(step, out_shardings, rules, manual: Tuple[str, ...] = ()):
@@ -242,13 +249,21 @@ def _on_mesh(step, out_shardings, rules, manual: Tuple[str, ...] = ()):
     on its shards, the kernels on its local tensors; plain tensors that
     meet them, such as positions, are the same on every rank and count
     as replicated), and the results are redistributed to
-    `out_shardings`."""
+    `out_shardings`. Beside `manual` axes (the compressed step's pod) it
+    runs on each argument's per-pod view (`sharding.per_pod`: the local
+    tensor as a DTensor over the mesh without them), so the collectives
+    of the other axes stay inside the pod's sub-mesh, and the results
+    are laid out on the full mesh (`sharding.from_pod`)."""
     def fn(*args):
         with installed_rules(rules):
-            if manual or not _split(args):
+            if not _split(args, manual):
                 return place(step(*local(args, manual)), out_shardings)
             with implicit_replication():
-                return lay_out(step(*args), out_shardings)
+                if not manual:
+                    return lay_out(step(*args), out_shardings)
+                out = step(*tree_map(lambda x: per_pod(x, manual), args))
+                return tree_map(lambda x, sh: from_pod(x, sh, manual), out,
+                                out_shardings)
     return fn
 
 

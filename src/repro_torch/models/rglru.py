@@ -298,6 +298,42 @@ def _ring_write(ring: torch.Tensor, slot: torch.Tensor,
     return ring.index_copy(1, slot, val)
 
 
+def _decode_attention_local(q, kc, vc, valid):
+    """`L.decode_attention` of DTensors q (B, 1, H, hd) and the ring
+    (B, window, K, hd), q laid out as the ring first (rows over `data`;
+    head_dim over `model` where the one kv head does not divide it), on
+    each rank's shards: the scores partial over the dims that split
+    head_dim and summed there, the softmax on the whole scores, the
+    weighted sum on each rank's part of head_dim. (On torch 2.11
+    DTensor's own einsum refuses to flatten the split head_dim.)"""
+    pl = tuple(kc.placements)
+    q = constrain(q, ("batch", None, "kv_heads", "head_dim"))  # the ring's
+    if tuple(q.placements) != pl:
+        raise ValueError(f"q laid out as {tuple(q.placements)}, its ring "
+                         f"as {pl}")
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    rows = tuple(Shard(0) if p == Shard(0) else Replicate() for p in pl)
+    s_pl = tuple(Partial() if isinstance(p, Shard) and p.dim == 3 else r
+                 for p, r in zip(pl, rows))
+    dtype = q.dtype
+
+    def scores(ql, kl):
+        return torch.einsum("bqhd,bkhd->bhqk", ql.float(), L.expand_kv(
+            kl, ql.shape[2]).float()) * scale
+
+    def weighted(sl, vl, n):
+        mask = L._len_mask(sl.shape[-1], n, None, sl.device)
+        w = torch.softmax(torch.where(mask[:, None, None, :], sl,
+                                      L.NEG_INF), dim=-1)
+        return torch.einsum("bhqk,bkhd->bqhd", w.to(vl.dtype).float(),
+                            L.expand_kv(vl, sl.shape[1]).float()).to(dtype)
+
+    s = on_locals(scores, (q, kc), (pl, pl), s_pl)
+    s = s.redistribute(s.device_mesh, rows)
+    n_pl = tuple(valid.placements) if is_dtensor(valid) else None
+    return on_locals(weighted, (s, vc, valid), (rows, pl, n_pl), pl)
+
+
 def attention_block(cfg, p, x, st, *, decode: bool, pos=None):
     """st: {"k": (B,window,K,hd), "v": ..., } ring buffer (decode only)."""
     rg = _cfg(cfg)
@@ -317,8 +353,11 @@ def attention_block(cfg, p, x, st, *, decode: bool, pos=None):
         kc = _ring_write(st["k"], slot, k.to(st["k"].dtype))
         vc = _ring_write(st["v"], slot, v.to(st["v"].dtype))
         valid = torch.clamp(pos + 1, max=rg.attention_window)
-        out = L.decode_attention(q, L.expand_kv(kc, H), L.expand_kv(vc, H),
-                                 valid)
+        if is_dtensor(q):
+            out = _decode_attention_local(q, kc, vc, valid)
+        else:
+            out = L.decode_attention(q, L.expand_kv(kc, H),
+                                     L.expand_kv(vc, H), valid)
         new_st = {"k": kc, "v": vc}
     else:
         positions = torch.arange(S, device=x.device)

@@ -20,6 +20,19 @@ metrics, the prefill's last logits (`logits`) and cache (`cache/<name>`),
 the decode cell's tokens (`tokens`, one column per step), this rank's
 local shapes of the placed arguments (`local/<tree>/<name>`) and, as
 JSON, RoPE's positions at every call (`positions`).
+MODE "family": `build_cell`'s train, prefill and decode cells of one
+config of the MoE, RWKV6, RG-LRU or MusicGen families
+(`tests/_torch_mesh_families.py`: IN.npz's entries, the outputs' names),
+the arguments `place`d by the cells' input shardings, on the CPU or, with
+`device` "cuda" in IN.npz, on the card (the ranks share it: the RMSNorm
+and paged-attention kernels' launches are written, `launches`). Writes besides
+this rank's local shapes of the placed arguments (`local/<tree>/<path>`),
+as JSON under `plain`, every plain tensor that met a DTensor under
+`implicit_replication()` (the op, shape, dtype and a digest of the
+values: the same on every rank where it is right to count it
+replicated), and as JSON under `padded` every `sharding.take_padded`
+call (dim, start, count, the dim's size): each rank's part of a dim
+GSPMD pads.
 MODE "norm": `layers.rms_norm` on x (B, S, d) split over its rows (mesh
 (WORLD, 1)), IN.npz's `x`, `scale` and `dy`: writes the scale gradient's
 placements (json), this rank's local part of it before the reduction
@@ -187,6 +200,135 @@ def _cell_runs(inp, mesh) -> dict:
         got.append(tok)
     out["tokens"] = torch.cat(got, dim=1).numpy()
     return out
+
+
+class _PlainRecord:
+    """For the `with` block, every plain tensor that DTensor's dispatch
+    counts as replicated (`implicit_replication()`): its op, shape, dtype
+    and a digest of its values, in call order (`calls`)."""
+
+    def __enter__(self):
+        from torch.distributed.tensor._dispatch import OpDispatcher
+        self.cls, self.calls = OpDispatcher, []
+        self.orig = OpDispatcher._try_replicate_spec_for_scalar_tensor
+        orig, calls = self.orig, self.calls
+
+        def recording(this, op_call, tensor, mesh):
+            t = tensor.detach()
+            digest = float(t.double().sum()) if t.numel() else 0.0
+            calls.append((str(op_call), list(t.shape), str(t.dtype),
+                          round(digest, 6)))
+            return orig(this, op_call, tensor, mesh)
+
+        OpDispatcher._try_replicate_spec_for_scalar_tensor = recording
+        return self
+
+    def __exit__(self, *exc):
+        self.cls._try_replicate_spec_for_scalar_tensor = self.orig
+
+
+def _family(inp, mesh) -> dict:
+    """The three cells of IN's config (`tests/_torch_mesh_families.py`),
+    the plain tensors that met DTensors and the padded parts recorded."""
+    from repro_torch.distributed import sharding
+    padded, take = [], sharding.take_padded
+
+    def recording(t, dim, start, count):
+        padded.append((dim, start, count, t.shape[dim]))
+        return take(t, dim, start, count)
+
+    sharding.take_padded = recording
+    try:
+        with _PlainRecord() as plain:
+            out = _family_runs(inp, mesh)
+    finally:
+        sharding.take_padded = take
+    out["plain"] = np.array(json.dumps(plain.calls))
+    out["padded"] = np.array(json.dumps(padded))
+    return out
+
+
+def _family_runs(inp, mesh) -> dict:
+    import _torch_mesh_families as fam
+    from repro_torch import configs
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.distributed.sharding import full, place
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.optim import adamw
+    cfg = fam.family_cfg(configs, inp)
+    audio = cfg.frontend.kind == "audio"
+    cells = str(inp["cells"]).split(",")
+    dev = torch.device(_device(inp))
+    out = {}
+    params = {k: v.to(dev) for k, v in _split(inp, "p/").items()}
+    if "train" in cells:
+        shape = configs.ShapeConfig("t", seq_len=int(inp["train_seq"]),
+                                    global_batch=int(inp["train_batch"]),
+                                    kind="train")
+        cell = build_cell(cfg, shape, mesh)
+        opt = adamw.adamw_init(params)
+        n = next(iter(cell["args"][2].values())).shape[0]
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in make_batch(
+            cfg, shape, step=0, num_microbatches=n).items()}
+        args = place((params, opt, batch), cell["in_shardings"])
+        out.update(_local_shapes({"params": args[0], "opt": args[1]},
+                                 "train"))
+        new_p, new_o, m = full(cell["fn"](*args))
+        trees = {"p": new_p, **{t: new_o[t] for t in ("mu", "nu",
+                                                      "master")}}
+        out.update({f"{t}/{k}": v.cpu().numpy() for t, tree in trees.items()
+                    for k, v in tree.items()})
+        out.update({f"m/{k}": v.cpu().numpy() for k, v in m.items()})
+    prompt = ({"frame_embeds": torch.from_numpy(inp["frames"]).to(dev)}
+              if audio else {"tokens": torch.from_numpy(inp["tokens"])
+                             .to(dev)})
+    B, S = next(iter(prompt.values())).shape[:2]
+    if "prefill" in cells:
+        cell = build_cell(cfg, configs.ShapeConfig(
+            "p", seq_len=S, global_batch=B, kind="prefill"), mesh)
+        args = place((params, prompt), cell["in_shardings"])
+        out.update(_local_shapes({"params": args[0]}, "serve"))
+        logits, cache = full(cell["fn"](*args))
+        out["logits"] = logits.cpu().numpy()
+        out.update(fam.flat(_numpy(cache), "cache"))
+    if "decode" in cells:
+        steps = int(inp["decode_steps"])
+        shape = configs.ShapeConfig("d", seq_len=S + steps, global_batch=B,
+                                    kind="decode")
+        cell = build_cell(cfg, shape, mesh)
+        lg, cache = cell["model"].prefill(params, prompt,
+                                          max_len=shape.seq_len)
+        tok = lg[:, -1].argmax(-1).to(torch.int32)[:, None]
+        in_sh = cell["in_shardings"]
+        p_d, c_d = place(params, in_sh[0]), place(cache, in_sh[2])
+        out.update(_local_shapes({"cache": c_d}, "decode"))
+        got = [tok]
+        for i in range(steps):
+            b = ({"frame_embed": torch.from_numpy(inp["dec_frames"][i])
+                  .to(dev)} if audio else {"token": tok})
+            tok_d, c_d = cell["fn"](p_d, place(b, in_sh[1]), c_d)
+            tok = full(tok_d)
+            got.append(tok)
+        out["tokens"] = torch.stack(got, dim=1).cpu().numpy()
+        out["launches"] = np.array(_launches())
+    return out
+
+
+def _device(inp) -> str:
+    return str(inp["device"]) if "device" in inp.files else "cpu"
+
+
+def _launches() -> list:
+    """The RMSNorm and paged-attention kernels' launch counts so far."""
+    from repro_torch.kernels.paged_attention import kernel as pa_kernel
+    from repro_torch.kernels.rmsnorm import kernel as rms_kernel
+    return [rms_kernel.launches, pa_kernel.launches]
+
+
+def _numpy(tree):
+    """A nested dict of tensors as numpy arrays."""
+    return {k: _numpy(v) if isinstance(v, dict) else v.cpu().numpy()
+            for k, v in tree.items()}
 
 
 def _norm(inp, mesh) -> dict:
@@ -370,14 +512,18 @@ def main(argv) -> int:
             # transport for ranks sharing one card), here in /dev/shm
             from repro_torch.distributed import shared_card
             shared_card.install("CPU")
+        if _device(inp) == "cuda":
+            torch.cuda.set_device(0)
         mesh = make_test_mesh(int(inp["data"]), int(inp["model"]),
-                              device="cpu")
+                              device=_device(inp))
         if mode == "collectives":
             out = _collectives(rank, world)
         elif mode == "paged":
             out = _paged(inp, mesh)
         elif mode == "cells":
             out = _cells(inp, mesh)
+        elif mode == "family":
+            out = _family(inp, mesh)
         elif mode == "norm":
             out = _norm(inp, mesh)
         else:

@@ -19,7 +19,11 @@ the mesh (pod=WORLD, data=1, model=1) for a reduced f32 config (IN.npz:
 `make_batch`'s step 0); writes the new params (`p/<name>`), the AdamW
 moments and master copy (`mu/`, `nu/`, `master/<name>`), this pod's
 err (`err/<name>`), the largest |g + e| it quantized per leaf
-(`amax/<name>`) and the loss.
+(`amax/<name>`) and the loss. With `data` in IN.npz (WORLD a multiple
+of it) the mesh is (pod=WORLD / data, data, model=1): each pod's batch
+and FSDP state split over its `data` ranks, the step run on the per-pod
+views; the outputs are then the whole tensors (this pod's own `err`),
+and the grad norm is written too (`grad_norm`).
 
 `run(mode, tmp)` starts the ranks and returns what each wrote.
 """
@@ -42,7 +46,8 @@ SRC = Path(__file__).resolve().parents[1] / "src"
 
 def run(mode: str, tmp: Path, world: int = 2, timeout: float = 180):
     """Run `world` ranks of `mode` over files in `tmp` (IN: tmp/in.npz or
-    tmp/in_r<rank>.npz); returns each rank's outputs as a dict."""
+    tmp/in_r<rank>.npz); returns each rank's outputs as a dict. Every
+    rank is killed at `timeout` seconds."""
     env = dict(os.environ, PYTHONPATH=str(SRC))
     procs = [subprocess.Popen(
         [sys.executable, __file__, mode, str(r), str(world),
@@ -50,10 +55,16 @@ def run(mode: str, tmp: Path, world: int = 2, timeout: float = 180):
         env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         for r in range(world)]
     errors = []
-    for p in procs:
-        _, err = p.communicate(timeout=timeout)
-        if p.returncode:
-            errors.append(err)
+    try:
+        for p in procs:
+            _, err = p.communicate(timeout=timeout)
+            if p.returncode:
+                errors.append(err)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
     assert not errors, "\n".join(errors)
     return [dict(np.load(tmp / f"out_r{r}.npz")) for r in range(world)]
 
@@ -117,7 +128,7 @@ def main(argv) -> int:
         else:
             from repro_torch.configs import ShapeConfig, get_config, reduced
             from repro_torch.data.pipeline import make_batch
-            from repro_torch.distributed.sharding import local, place
+            from repro_torch.distributed.sharding import full, local, place
             from repro_torch.launch.mesh import make_test_mesh
             from repro_torch.launch.steps import build_cell
             from repro_torch.optim import adamw, compression
@@ -126,8 +137,8 @@ def main(argv) -> int:
 
             def recording(grads, group, errors):
                 for k in grads:
-                    amax[k] = float((grads[k].float() + errors[k]).abs()
-                                    .max())
+                    g = (grads[k].float() + errors[k]).abs().max()
+                    amax[k] = float(full(g))
                 return psum(grads, group, errors)
 
             compression.psum_compressed = recording
@@ -135,7 +146,9 @@ def main(argv) -> int:
                                       dtype="float32")
             shape = ShapeConfig("pods", seq_len=int(inp["seq_len"]),
                                 global_batch=int(inp["batch"]), kind="train")
-            mesh = make_test_mesh(1, 1, pod=world, device="cpu")
+            data = int(inp["data"]) if "data" in inp.files else 1
+            mesh = make_test_mesh(data, 1, pod=world // data, device="cpu")
+            whole = local if data == 1 else full
             cell = build_cell(cfg, shape, mesh, grad_compress=True)
             params = _split(inp, "p/")
             opt = adamw.adamw_init(params)
@@ -143,7 +156,7 @@ def main(argv) -> int:
             n = cell["args"][2]["tokens"].shape[0]
             batch = {k: torch.from_numpy(v) for k, v in make_batch(
                 cfg, shape, step=0, num_microbatches=n).items()}
-            new_p, new_o, m = local(cell["fn"](*place(
+            new_p, new_o, m = whole(cell["fn"](*place(
                 (params, opt, batch), cell["in_shardings"])))
             trees = {"p": new_p, **{t: new_o[t] for t in (
                 "mu", "nu", "master", "err")}}
@@ -151,6 +164,8 @@ def main(argv) -> int:
                    for k, v in tree.items()}
             out.update({f"amax/{k}": np.float32(v) for k, v in amax.items()},
                        loss=m["loss"].numpy())
+            if data > 1:
+                out["grad_norm"] = m["grad_norm"].numpy()
         np.savez(dst.replace(".npz", f"_r{rank}.npz"), **out)
     finally:
         dist.destroy_process_group()
