@@ -139,7 +139,24 @@ points:
   difference equal to the gathered attention's 4 B H hd len L (the
   paged kernel's work) within 1%; each cell's roofline bound beside its
   phase's measured time, and the train cell's traced peak beside the
-  card's.
+  card's. (a)'s cells save their logs of counted ops (`--save-hlo`),
+  which `scripts/torch_reanalyze.py` re-analyzes without tracing on a
+  copy of their records: every analysis, collectives_by_op and
+  f32_upcast_bytes equal to the traced ones within 1e-9 relative,
+  collective counts exactly; the re-analysis's wall time beside the
+  traces' and each log's size;
+- the entry points outside the package (phase 15): the six
+  `examples/torch_*.py` on the card at their defaults (quickstart,
+  async_put_get, serve_kv and train_lm in this process through
+  `main([])`, every RMSNorm, paged-attention and codec call held to its
+  plain version and counted, each example's launches all held and the
+  ones it must make nonzero; process_store and networked_store as
+  subprocesses, their workers on the card), each held to its own
+  `--device cpu` run (the store examples' printed lines, masked, the
+  quickstart's GETs after its writer has drained in both runs; serve_kv's
+  KV page lines; train_lm's restored step, slabs and recoveries), then
+  `scripts/torch_check_metrics_dump.py` on the card; each entry point's
+  wall time.
 
 Every phase asserts; any failure exits non-zero. Prints timing lines,
 one `kernels` JSON line and, last, `{"ok": true, "device": {...}}`.
@@ -4681,7 +4698,9 @@ def start_dryrun(work: Path) -> dict:
     """Phase 14(a)'s and (b)'s subprocesses, started early at the lowest
     CPU priority (`nice` 19): they trace on the host's idle cores while
     phases 13c-13d hold the card, and `dryrun_phase` collects them. Their
-    records go to `work`, which no phase before 14 removes."""
+    records go to `work`, which no phase before 14 removes, and (a)'s
+    logs of counted ops (`--save-hlo`) to `work`/experiments/torch_hlo/.
+    They are collected after phase 15."""
     work.mkdir(parents=True, exist_ok=True)
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     low = functools.partial(os.nice, 19)
@@ -4690,14 +4709,61 @@ def start_dryrun(work: Path) -> dict:
         out = work / f"dryrun_{i}.jsonl"
         procs.append((out, subprocess.Popen(
             [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-             arch, "--shape", shape, "--mesh", mesh, *extra, "--out",
-             str(out)], env=env, cwd=ROOT, stdout=subprocess.PIPE,
+             arch, "--shape", shape, "--mesh", mesh, *extra, "--save-hlo",
+             "--out", str(out)], env=env, cwd=work, stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True, preexec_fn=low)))
     cells_proc = subprocess.Popen(
         [sys.executable, "-c", "import chip_smoke; chip_smoke.dry_cells()"],
         env=env, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
         text=True, preexec_fn=low)
     return {"procs": procs, "cells": cells_proc, "t": time.perf_counter()}
+
+
+def _within(got: float, want: float, rel: float) -> bool:
+    return abs(got - want) <= rel * abs(want)
+
+
+def reanalysis_phase(work: Path, recs: list) -> None:
+    """Phase 14(a)'s saved logs re-analyzed: `scripts/torch_reanalyze.py`
+    over a copy of the records (no trace); every refreshed `analysis`,
+    `collectives_by_op` and `f32_upcast_bytes` equals the traced one
+    within 1e-9 relative, the collective counts exactly."""
+    logs = sorted((work / "experiments" / "torch_hlo").glob("*.txt"))
+    assert len(logs) == len(recs), [p.name for p in logs]
+    copy = work / "reanalyzed.jsonl"
+    copy.write_text("".join(json.dumps(r) + "\n" for r in recs))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t = time.perf_counter()
+    res = subprocess.run([sys.executable, str(ROOT / "scripts" /
+                                              "torch_reanalyze.py"),
+                          str(copy)], env=env, cwd=work, capture_output=True,
+                         text=True, timeout=600)
+    wall = time.perf_counter() - t
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert f"re-analyzed {len(recs)}/{len(recs)} records" in res.stdout, \
+        res.stdout
+    for r, new in zip(recs, (json.loads(line) for line in
+                             copy.read_text().splitlines())):
+        cell = (r["arch"], r["shape"], r["mesh"])
+        a, b = r["analysis"], new["analysis"]
+        assert a.keys() == b.keys() and all(
+            _within(b[k], a[k], 1e-9) for k in a), (cell, a, b)
+        c, d = r["collectives_by_op"], new["collectives_by_op"]
+        assert c.keys() == d.keys(), (cell, c, d)
+        for op in c:
+            assert d[op]["count"] == c[op]["count"], (cell, op, c, d)
+            assert all(_within(d[op][k], c[op][k], 1e-9)
+                       for k in ("result_bytes", "ring_bytes")), (cell, op)
+        assert new["memory"] == r["memory"], (cell, r["memory"],
+                                              new["memory"])
+    sizes = {p.name: p.stat().st_size for p in logs}
+    print(f"phase 14a re-analysis: scripts/torch_reanalyze.py over the "
+          f"{len(logs)} saved logs in {wall:.3f} s without tracing (the "
+          f"traces took {', '.join(str(r['trace_s']) for r in recs)} s): "
+          f"every analysis, collectives_by_op and f32_upcast_bytes equal "
+          f"the traced ones within 1e-9 relative, collective counts "
+          f"exactly; log bytes {json.dumps(sizes)}; f32_upcast_bytes "
+          f"{json.dumps({r['arch'] + ' ' + r['shape']: r['memory']['f32_upcast_bytes'] for r in recs})}")
 
 
 def dryrun_phase(card: str, work: Path, dry: dict, started=None) -> None:
@@ -4749,6 +4815,7 @@ def dryrun_phase(card: str, work: Path, dry: dict, started=None) -> None:
             print(f"phase 14a pod all-gather (DCN): "
                   f"{r['collectives_by_op']['all-gather_dcn']} == "
                   f"{r['pod_gather_bytes']} bytes by the placements")
+    reanalysis_phase(work, recs)
     traced = json.loads(traced.strip().splitlines()[-1])
     assert set(traced) == set(dry), (sorted(traced), sorted(dry))
     for kind in traced:
@@ -4779,8 +4846,290 @@ def dryrun_phase(card: str, work: Path, dry: dict, started=None) -> None:
               f"{peak} | {card}")
         assert ok, (kind, check)
     print(f"phase 14 wall time {time.perf_counter() - waited:.3f} s after "
-          f"phase 13d (the dry-runs and the 1 x 1 trace, started at nice "
+          f"phase 15 (the dry-runs and the 1 x 1 trace, started at nice "
           f"19 before phase 13c, in {wall:.3f} s, in parallel)")
+
+
+# ---- slice L, the entry points outside the package: phase 15 ----------
+
+# examples/torch_<name>.py: run in this process through `main([])`, or
+# as a subprocess where the example spawns store workers
+EXAMPLES_IN_PROCESS = ("quickstart", "async_put_get", "serve_kv",
+                       "train_lm")
+EXAMPLES_SPAWNING = ("process_store", "networked_store")
+# the kernels each in-process example must launch on the card
+EXAMPLE_KERNELS = {"quickstart": ("gf256",), "async_put_get": ("gf256",),
+                   "serve_kv": ("rmsnorm", "paged_decode_attention"),
+                   "train_lm": ("gf256", "rmsnorm")}
+EXAMPLE_TIMEOUT = 600            # seconds an example's subprocess may run
+# what varies from run to run in the store examples' lines (pids, TCP
+# ports, the writeback queue's depth, times and latencies, span and trace
+# counts, which of DOWN or RECONNECTING a 50 ms poll caught first)
+EXAMPLE_MASKS = [(r"pids=\[[\d, ]*\]", "pids=[*]"),
+                 (r"\('127\.0\.0\.1', \d+\)", "('127.0.0.1', *)"),
+                 (r"writeback queue depth: \d+", "writeback queue depth: *"),
+                 (r"\b\d+(\.\d+)?(us|s)\b", r"*\2"),
+                 (r"\d+ spans across \d+ traces", "* spans across * traces"),
+                 (r"detector state (DOWN|RECONNECTING)",
+                  "detector state DOWN or RECONNECTING")]
+
+
+def masked(text: str) -> list:
+    """`text`'s lines with what varies from run to run masked."""
+    import re
+    out = []
+    for line in text.splitlines():
+        for pattern, repl in EXAMPLE_MASKS:
+            line = re.sub(pattern, repl, line)
+        out.append(line)
+    return out
+
+
+def example_path(name: str) -> Path:
+    return ROOT / "examples" / f"torch_{name}.py"
+
+
+def drain_before_get(store_cls):
+    """Make `store_cls.get` (either package's `InfiniStore`) wait for the
+    store's writeback thread to drain, unless it is paused, before it
+    reads; returns the original. The quickstart's GETs follow its PUTs
+    with no barrier, so whether they read the slabs or the persistent
+    buffer (and so its recovery count and its bill) depends on how soon
+    the writer thread runs; two runs that are compared both drain."""
+    get = store_cls.get
+
+    def drained(self, key):
+        if not self.writeback._paused:
+            self.writeback.flush()
+        return get(self, key)
+
+    store_cls.get = drained
+    return get
+
+
+# runs the script at argv[2] under `drain_before_get` of package argv[1]
+_DRAINED = f"""
+import importlib, runpy, sys
+sys.path.insert(0, {str(ROOT)!r})
+from chip_smoke import drain_before_get
+drain_before_get(importlib.import_module(sys.argv[1] + ".core").InfiniStore)
+sys.argv = sys.argv[2:]
+runpy.run_path(sys.argv[0], run_name="__main__")
+"""
+
+
+def start_example(name: str, *args: str, threads: int = 0,
+                  path: Path = None, low: bool = False,
+                  drained: str = None):
+    """examples/torch_<name>.py (or the script at `path`) as a subprocess
+    (`threads` > 0: that many intra-op threads; `low`: at the lowest CPU
+    priority; `drained`: a package whose store's GETs `drain_before_get`),
+    its start time beside it."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    if threads:
+        env["OMP_NUM_THREADS"] = str(threads)
+    cmd = [str(path or example_path(name)), *args]
+    if drained:
+        cmd = ["-c", _DRAINED, drained, *cmd]
+    return subprocess.Popen([sys.executable, *cmd], env=env,
+                            cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            preexec_fn=functools.partial(os.nice, 19)
+                            if low else None), time.perf_counter()
+
+
+def start_cpu_examples() -> dict:
+    """Phase 15's two long `--device cpu` runs (train_lm's 200 steps,
+    serve_kv), started early at the lowest CPU priority with two
+    intra-op threads each, as phase 14's traces are: they run on the
+    host's idle cores while phases 13c-13d hold the card."""
+    return {name: start_example(name, "--device", "cpu", threads=2,
+                                low=True)
+            for name in ("train_lm", "serve_kv")}
+
+
+def finish_example(name: str, started,
+                   timeout: float = EXAMPLE_TIMEOUT) -> tuple:
+    """(stdout, wall seconds) of a subprocess from `start_example`; it
+    must exit 0 within `timeout` seconds."""
+    proc, t = started
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, err = proc.communicate()
+    wall = time.perf_counter() - t
+    assert proc.returncode == 0, (name, out[-2000:], err[-3000:])
+    return out, wall
+
+
+class CodecCheck:
+    """While installed, every GF(256) product the codec makes
+    (`core.ec.gf256_matmul`) is held bit for bit to the plain version on
+    the same operands."""
+
+    def __init__(self):
+        from repro_torch.core import ec
+        self.ec, self.calls = ec, 0
+
+    def __enter__(self):
+        import torch
+        from repro_torch.kernels.rs_gf256.ref import gf256_matmul_ref
+        self.orig = self.ec.gf256_matmul
+
+        def checked(G, X, *args, **kw):
+            out = self.orig(G, X, *args, **kw)
+            assert torch.equal(out, gf256_matmul_ref(G, X)), \
+                (tuple(X.shape), X.device)
+            self.calls += 1
+            return out
+
+        self.ec.gf256_matmul = checked
+        return self
+
+    def __exit__(self, *exc):
+        self.ec.gf256_matmul = self.orig
+
+
+def example_in_process(name: str) -> tuple:
+    """examples/torch_<name>.py's `main([])` (the card) in this process,
+    every kernel call held to its plain version (`ShardKernelCheck`,
+    `CodecCheck`; the quickstart's GETs drained, `drain_before_get`):
+    (its printed text, wall seconds, launches per kernel, the checks'
+    report, codec calls checked). The launch counts are set to 0 just
+    before and read just after."""
+    import contextlib
+    import importlib.util
+    import io
+
+    from repro_torch.core import InfiniStore
+    from repro_torch.kernels.paged_attention import kernel as pa_kernel
+    from repro_torch.kernels.rmsnorm import kernel as rms_kernel
+    from repro_torch.kernels.rs_gf256 import kernel
+    spec = importlib.util.spec_from_file_location(f"torch_{name}",
+                                                  example_path(name))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    buf = io.StringIO()
+    get = drain_before_get(InfiniStore) if name == "quickstart" else None
+    try:
+        with ShardKernelCheck() as check, CodecCheck() as codec, \
+                contextlib.redirect_stdout(buf):
+            kernel.launches = rms_kernel.launches = pa_kernel.launches = 0
+            t = time.perf_counter()
+            mod.main([])
+            wall = time.perf_counter() - t
+            launches = {"gf256": kernel.launches,
+                        "rmsnorm": rms_kernel.launches,
+                        "paged_decode_attention": pa_kernel.launches}
+    finally:
+        if get is not None:
+            InfiniStore.get = get
+    return buf.getvalue(), wall, launches, check.report(), codec.calls
+
+
+def kv_lines(out: str) -> list:
+    """serve_kv's KV page lines: its `KVStats` and the restored pages."""
+    return [line for line in out.splitlines()
+            if "KVStats(" in line or line.startswith("resumed seq0:")]
+
+
+def train_facts(out: str) -> dict:
+    """train_lm's restored step, reclaimed slabs, recoveries and its
+    closing line."""
+    import re
+    return {"restored": re.search(r"restored from step (\d+);", out)[1],
+            "slabs": re.search(r"reclaimed all (\d+) slabs", out)[1],
+            "recoveries": re.search(r"recoveries: (\d+) local, (\d+) "
+                                    r"parallel", out).groups(),
+            "ok": "restart-after-failure ok" in out}
+
+
+def examples_phase(card: str, cpu: dict) -> dict:
+    """Phase 15: the port's six examples on the card at their defaults,
+    each beside its own `--device cpu` run (subprocesses: train_lm's and
+    serve_kv's `cpu`, from `start_cpu_examples` before phase 13c; the
+    others with the phase). In this process through `main([])`:
+    quickstart, async_put_get, serve_kv (the paged and RMSNorm kernels),
+    train_lm (the codec on its checkpoints, RMSNorm forward and
+    backward), every kernel call held to its plain version at phase 6's
+    tolerances and every codec product bit for bit, their launches
+    counted: as many calls held as launches of each kernel, and the
+    kernels of `EXAMPLE_KERNELS` launched;
+    process_store and networked_store as subprocesses (their workers on
+    the card count their own launches), the first beside
+    `scripts/torch_check_metrics_dump.py` on the card, which must exit 0.
+    The store examples' lines equal the CPU run's, masked
+    (`EXAMPLE_MASKS`); serve_kv's KV page lines and train_lm's restored
+    step, slabs and recoveries equal the CPU run's. Returns the launches
+    and worst errors per kernel."""
+    t0 = time.perf_counter()
+    cpu = dict(cpu)
+    cpu.update({name: start_example(name, "--device", "cpu",
+                                    drained="repro_torch"
+                                    if name == "quickstart" else None)
+                for name in ("quickstart", "async_put_get", "process_store",
+                             "networked_store")})
+    launches = {"gf256": 0, "rmsnorm": 0, "paged_decode_attention": 0}
+    errs = {"rmsnorm": 0.0, "paged_decode_attention": 0.0}
+    card_out, walls = {}, {}
+    for name in EXAMPLES_IN_PROCESS:
+        out, wall, got, report, codec_calls = example_in_process(name)
+        card_out[name], walls[name] = out, wall
+        held = {"gf256": codec_calls}
+        for key, (n, err, ok) in report.items():
+            assert ok, (name, key, n, err)
+            kern = key.split("/")[0]
+            errs[kern] = max(errs[kern], err)
+            held[kern] = held.get(kern, 0) + n
+        assert all(held.get(k, 0) == n for k, n in got.items()), \
+            (name, "launches not all held to the plain version", got, held)
+        assert all(got[k] > 0 for k in EXAMPLE_KERNELS[name]), \
+            (name, "a kernel of its path not launched", got)
+        for key, n in got.items():
+            launches[key] += n
+        print(f"phase 15 torch_{name}.py on the card in {wall:.3f} s: "
+              f"launches {json.dumps(got)}; kernel calls held to the plain "
+              f"version {json.dumps({k: [v[0], '%.3e' % v[1]] for k, v in report.items()})}"
+              f", {codec_calls} codec products bit for bit | {card}")
+    gate = start_example("gate", path=ROOT / "scripts" /
+                         "torch_check_metrics_dump.py")
+    for name in EXAMPLES_SPAWNING:
+        card_out[name], walls[name] = finish_example(
+            name, start_example(name))
+        print(f"phase 15 torch_{name}.py on the card (a subprocess, its "
+              f"workers on the card) in {walls[name]:.3f} s | {card}")
+    out, walls["metrics gate"] = finish_example("metrics gate", gate)
+    print(f"phase 15 scripts/torch_check_metrics_dump.py on the card "
+          f"(beside torch_process_store.py): {out.strip().splitlines()[-1]}"
+          f" in {walls['metrics gate']:.3f} s | {card}")
+    for name in ("quickstart", "async_put_get") + EXAMPLES_SPAWNING:
+        out, wall = finish_example(name, cpu[name])
+        want, got = masked(out), masked(card_out[name])
+        assert got == want, (name, got, want)
+        print(f"phase 15 torch_{name}.py: the card's {len(got)} lines equal "
+              f"the --device cpu run's (masked; {wall:.3f} s from the "
+              f"phase's start)")
+    out, wall = finish_example("serve_kv", cpu["serve_kv"])
+    assert kv_lines(card_out["serve_kv"]) == kv_lines(out) \
+        and len(kv_lines(out)) == 3, (card_out["serve_kv"], out)
+    print(f"phase 15 torch_serve_kv.py: KV page lines equal the --device "
+          f"cpu run's (done {wall:.3f} s after its start): "
+          f"{kv_lines(out)}")
+    out, wall = finish_example("train_lm", cpu["train_lm"])
+    facts = train_facts(card_out["train_lm"])
+    assert facts == train_facts(out) and facts["ok"], \
+        (card_out["train_lm"], out)
+    lines = card_out["train_lm"].splitlines()
+    print(f"phase 15 torch_train_lm.py: restored step, slabs and recoveries "
+          f"equal the --device cpu run's (done {wall:.3f} s after its "
+          f"start): {json.dumps(facts)}; the card's run: "
+          f"{' /'.join(lines[1:2] + lines[4:5])}")
+    print(f"phase 15 wall time {time.perf_counter() - t0:.3f} s; launches "
+          f"{json.dumps(launches)}; per entry point on the card "
+          f"{json.dumps({k: round(v, 3) for k, v in walls.items()})} s | "
+          f"{card}")
+    return {**launches, "errs": errs}
 
 
 def main(argv=None) -> int:
@@ -5130,10 +5479,12 @@ def main(argv=None) -> int:
     print(f"phase 13 wall time {time.perf_counter() - t:.3f} s (13a "
           f"{t_cells:.3f} s)")
 
-    # phase 14's traces start here, on the host's idle cores
+    # phase 14's traces and phase 15's long CPU runs start here, on the
+    # host's idle cores
     dry_work = ROOT / "build" / "repro_torch" / "dryrun"
     shutil.rmtree(dry_work, ignore_errors=True)
     dry_started = start_dryrun(dry_work)
+    cpu_examples = start_cpu_examples()
     try:
         # ---- phase 13c: the cells and train(..., mesh=) over data, model
         work.mkdir(parents=True, exist_ok=True)
@@ -5146,12 +5497,18 @@ def main(argv=None) -> int:
         shutil.rmtree(work, ignore_errors=True)
         torch.cuda.empty_cache()
 
+        # ---- phase 15: the examples and the metrics gate on the card ---
+        # (before phase 14 is collected: its traces finish meanwhile)
+        examples = examples_phase(card, cpu=cpu_examples)
+        torch.cuda.empty_cache()
+
         # ---- phase 14: the dry-run over the production meshes ---------
         dryrun_phase(card, dry_work, {**cells["dry"], **models["dry"]},
                      dry_started)
     finally:
         for proc in [p for _, p in dry_started["procs"]] \
-                + [dry_started["cells"]]:
+                + [dry_started["cells"]] \
+                + [p for p, _ in cpu_examples.values()]:
             if proc.poll() is None:
                 proc.kill()
                 proc.communicate()
@@ -5168,7 +5525,7 @@ def main(argv=None) -> int:
         + serving["gf_evict_launches"] + training["gf_launches"]
         + scale_out["launches"]
         + models["launches"]["gf256_matmul_bitsliced"] + meshes["gf256"]
-        + families["gf256"],
+        + families["gf256"] + examples["gf256"],
         "max_abs_err": max_err,
         "ms": enc["ms"],
         "plain_ms": enc["plain_ms"],
@@ -5188,11 +5545,11 @@ def main(argv=None) -> int:
     }] + [dict(
         name=name, route="cuda", source=source, replaces=replaces,
         launches=serving["launches"][name] + models["launches"][name]
-        + cells[name] + meshes[name] + families[name]
+        + cells[name] + meshes[name] + families[name] + examples[name]
         + (training["rmsnorm_launches"] + pods["rmsnorm"]
            if name == "rmsnorm" else 0),
         max_abs_err=max(checks[name], meshes["errs"][name],
-                        families["errs"][name],
+                        families["errs"][name], examples["errs"][name],
                         training["grad_err"] if name == "rmsnorm" else 0.0,
                         models["rms_d2560"]["max_abs_err"]
                         if name == "rmsnorm" else max(

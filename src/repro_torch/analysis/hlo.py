@@ -33,10 +33,24 @@ Python loops unroll in the trace: every trip is counted as it runs and
 `while_trips` stays empty, since there is no loop to infer a count for.
 Meta tensors, and DTensors whose local tensors are meta, trace at any
 size without memory.
+
+The trace also keeps a log of what it counted (`HloAnalysis.log`, the
+text that `python -m repro_torch.launch.dryrun --save-hlo` saves): each
+counted op once per signature (its aten name, the shape, stride and
+dtype of every tensor in and out, its other arguments, a collective's
+group ranks) with the number of times it ran, memo hits and replayed
+calls included. One rule, `_Counter._count`, turns a signature into its
+counts, in the trace and over a saved log alike: `analyze_hlo(text)`
+re-runs the rules on meta tensors of the logged layouts and gives the
+trace's flops, bytes, transcendentals and collectives without tracing
+again (the reference's names; `parse_hlo` reads the log,
+`bf16_upcast_f32_bytes` sums its bf16 -> f32 conversions).
 """
 from __future__ import annotations
 
 import functools
+import importlib
+import json
 import sys
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Sequence
@@ -114,6 +128,7 @@ class HloAnalysis:
     peak_bytes: int = 0
     bytes_by_op: Dict[str, float] = field(default_factory=dict)
     result: Any = field(default=None, repr=False)   # what `fn` returned
+    log: str = field(default="", repr=False)        # the counted ops' log
 
     @property
     def collective_result_bytes(self) -> float:
@@ -244,12 +259,21 @@ class _Storages:
 
 
 def _key(x):
-    """What a meta op's result depends on: shapes, strides and dtypes of
-    its tensors, and its other arguments."""
+    """What an op's result depends on, hashable: the shapes, strides and
+    dtypes of its tensors, and its other arguments (a sequence or dict by
+    its items, NaN as "nan"; a process group, a work handle or another
+    unhashable object by its type's name). The memo's key and the log's
+    signature."""
     if isinstance(x, torch.Tensor):
         return (tuple(x.shape), x.stride(), x.dtype)
     if isinstance(x, (list, tuple)):
         return tuple(_key(y) for y in x)
+    if isinstance(x, dict):
+        return tuple((k, _key(v)) for k, v in x.items())
+    if isinstance(x, float) and x != x:
+        return "nan"
+    if isinstance(x, torch.ScriptObject) or type(x).__hash__ is None:
+        return type(x).__name__
     return x
 
 
@@ -260,13 +284,85 @@ def _memoizable(func) -> bool:
             and all(r.alias_info is None for r in schema.returns))
 
 
+# ---- the log: counted ops by signature --------------------------------
+
+LOG_TITLE = ("# repro_torch.analysis.hlo log: one counted aten op signature "
+             "a line, n = the times it ran")
+
+
+def _dtype_name(dtype: torch.dtype) -> str:
+    return str(dtype).removeprefix("torch.")
+
+
+def _enc(x):
+    """An op's argument or result as JSON: a tensor as its layout
+    {"$t": [shape, stride, dtype]}, a dtype, device, memory format or
+    layout tagged, another object as its type's name."""
+    if isinstance(x, torch.Tensor):
+        return {"$t": [list(x.shape), list(x.stride()),
+                       _dtype_name(x.dtype)]}
+    if isinstance(x, (list, tuple)):
+        return [_enc(y) for y in x]
+    if x is None or isinstance(x, (bool, int, float, str)):
+        return x
+    if isinstance(x, torch.dtype):
+        return {"$dtype": _dtype_name(x)}
+    if isinstance(x, torch.device):
+        return {"$device": str(x)}
+    if isinstance(x, (torch.memory_format, torch.layout)):
+        return {"$torch": str(x).removeprefix("torch.")}
+    return {"$object": type(x).__name__}
+
+
+def _dec(x):
+    """`_enc`'s inverse, a tensor as an empty meta tensor of its layout
+    (another object as None)."""
+    if isinstance(x, list):
+        return [_dec(y) for y in x]
+    if isinstance(x, dict):
+        if "$t" in x:
+            shape, stride, dtype = x["$t"]
+            return torch.empty_strided(shape, stride,
+                                       dtype=getattr(torch, dtype),
+                                       device="meta")
+        if "$dtype" in x:
+            return getattr(torch, x["$dtype"])
+        if "$device" in x:
+            return torch.device(x["$device"])
+        if "$torch" in x:
+            return getattr(torch, x["$torch"])
+        return None
+    return x
+
+
+def _op(name: str):
+    """The op overload a log line names ("aten.mm.default")."""
+    ns, packet, overload = name.split(".")
+    if ns != "aten":               # registers the collectives' ops
+        importlib.import_module("torch.distributed._functional_collectives")
+    return getattr(getattr(getattr(torch.ops, ns), packet), overload)
+
+
+@dataclass
+class LoggedOp:
+    """One line of the log: an op signature and the times it ran."""
+    n: int
+    op: str                        # "aten.mm.default"
+    args: list                     # `_enc`'s form
+    kwargs: dict
+    out: Any
+    ranks: Optional[List[int]]     # a collective's group, else None
+
+
 class _Counter(TorchDispatchMode):
     """Counts each op this rank runs on plain tensors. An op on meta
     tensors that makes new tensors runs its meta kernel once per
     signature (shapes, strides, dtypes, arguments): later calls get
     empty meta tensors of the remembered layout and the remembered
     counts (the meta kernels are Python, and the trace repeats each
-    signature thousands of times)."""
+    signature thousands of times). Every count is also logged by
+    signature (`log`), memo hits and replayed calls as the times they
+    stand for."""
 
     def __init__(self, res: HloAnalysis, pod_stride: int):
         super().__init__()
@@ -275,6 +371,8 @@ class _Counter(TorchDispatchMode):
         self.memo: Dict[Any, tuple] = {}
         self.memoizable: Dict[Any, bool] = {}
         self.calls: Dict[Any, tuple] = {}
+        self.log: Dict[Any, list] = {}     # signature -> [times, line]
+        self.memo_hits = self.replays = 0
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         from torch.distributed.tensor import DTensor
@@ -287,11 +385,13 @@ class _Counter(TorchDispatchMode):
         key = self._memo_key(func, args, kwargs)
         hit = self.memo.get(key) if key is not None else None
         if hit is not None:
-            layouts, seq, counts = hit
+            layouts, seq, counts, sig = hit
             outs = [torch.empty_strided(shape, stride, dtype=dtype,
                                         device="meta")
                     for shape, stride, dtype in layouts]
             self._add(*counts)
+            self.log[sig][0] += 1
+            self.memo_hits += 1
             self.storages.add(outs)
             return tuple(outs) if seq else outs[0]
         out = func(*args, **kwargs)
@@ -301,26 +401,38 @@ class _Counter(TorchDispatchMode):
         if _in_gloo_alltoall():
             self._gloo_alltoall(func, args, outs)
             return out
-        counts = self._count(func, args, kwargs, out)
+        ranks = _group_ranks(args) \
+            if func.overloadpacket.__name__ in _COLLECTIVE_OPS else None
+        counts, coll = self._count(func, args, kwargs, out, ranks,
+                                   self.pod_stride)
+        sig = self._log(func, args, kwargs, out, ranks, key)
         self._add(*counts)
+        if coll is not None:
+            self.res.collectives.append(coll)
         self.storages.add(outs)
         seq = isinstance(out, (tuple, list))
         if key is not None and outs and (not seq or len(outs) == len(out)):
             self.memo[key] = ([(tuple(t.shape), t.stride(), t.dtype)
-                               for t in outs], seq, counts)
+                               for t in outs], seq, counts, sig)
         return out
 
     def _gloo_alltoall(self, func, args, outs) -> None:
         """An op of DTensor's all-gather-and-chunk stand-in for an
-        all-to-all: its all-gather counts as the all-to-all NCCL runs
-        (this rank's shard in and out), its copy of the kept chunk as the
-        result, the rest as nothing."""
+        all-to-all: its all-gather counts, and is logged, as the
+        all-to-all NCCL runs (this rank's shard in, a tensor of its
+        layout out), its copy of the kept chunk as the result, the rest
+        as nothing."""
         name = func.overloadpacket.__name__
         if name == "all_gather_into_tensor":
-            self.res.collectives.append(_collective_stat(
-                "all-to-all", _nbytes(args[0]), _group_ranks(args), 1.0,
-                self.pod_stride))
-            self._add("all_to_all_single", 0, 2 * _nbytes(args[0]), 0)
+            a2a = torch.ops._c10d_functional.all_to_all_single.default
+            a2a_args = (args[0], [], [], args[-1])
+            out = torch.empty_like(args[0], device="meta")
+            ranks = _group_ranks(args)
+            counts, coll = self._count(a2a, a2a_args, {}, out, ranks,
+                                       self.pod_stride)
+            self._log(a2a, a2a_args, {}, out, ranks)
+            self._add(*counts)
+            self.res.collectives.append(coll)
         elif name == "clone":
             self.storages.add(outs)
 
@@ -332,12 +444,38 @@ class _Counter(TorchDispatchMode):
         if not ok or not tensors or any(t.device.type != "meta"
                                         for t in tensors):
             return None
-        key = (func, _key(args), _key(tuple(kwargs.items())))
-        try:
-            hash(key)
-        except TypeError:
-            return None
-        return key
+        return (func, _key(args), _key(kwargs))
+
+    def _log(self, func, args, kwargs, out, ranks, memo_key=None):
+        """Log one run of an op: the first of its signature adds a line
+        (its arguments' and results' layouts, no tensor kept), later
+        ones its count. A memoizable meta op's memo key is its signature
+        (its results' layouts follow from it). Returns the signature."""
+        sig = memo_key if memo_key is not None else (
+            func, _key(args), _key(kwargs), _key(out),
+            None if ranks is None else tuple(ranks))
+        entry = self.log.get(sig)
+        if entry is None:
+            self.log[sig] = [1, (str(func), _enc(args),
+                                 {k: _enc(v) for k, v in kwargs.items()},
+                                 _enc(out), ranks)]
+        else:
+            entry[0] += 1
+        return sig
+
+    def log_text(self) -> str:
+        """The log as text: a title, a JSON line of totals (ops run,
+        signatures, memo hits, replayed calls), then one JSON line per
+        signature."""
+        lines = [LOG_TITLE, "# " + json.dumps({
+            "ops": sum(n for n, _ in self.log.values()),
+            "signatures": len(self.log), "memo_hits": self.memo_hits,
+            "replays": self.replays})]
+        for n, (op, args, kwargs, out, ranks) in self.log.values():
+            lines.append(json.dumps(
+                {"n": n, "op": op, "args": args, "kwargs": kwargs,
+                 "out": out, "ranks": ranks}, separators=(",", ":")))
+        return "\n".join(lines) + "\n"
 
     def _add(self, name, flops, nbytes, transcendentals) -> None:
         res = self.res
@@ -347,20 +485,24 @@ class _Counter(TorchDispatchMode):
             res.bytes_by_op[name] = res.bytes_by_op.get(name, 0) + nbytes
         res.transcendentals += transcendentals
 
-    def _count(self, func, args, kwargs, out) -> tuple:
-        """(name, flops, bytes, transcendentals) of one op; a collective
-        is recorded here."""
+    @staticmethod
+    def _count(func, args, kwargs, out, ranks, pod_stride: int):
+        """The rules: (name, flops, bytes, transcendentals) of one op on
+        these arguments and results, and its `CollectiveStat` over the
+        global `ranks` of its group (None for an op that is not a
+        collective). Reads only layouts, arguments and ranks, so a
+        logged signature's meta tensors give the trace's counts."""
         name = func.overloadpacket.__name__
         packet = func.overloadpacket
         flops = 0
         if packet in flop_registry:
             flops = flop_registry[packet](*args, **kwargs, out_val=out)
         nbytes = 0
+        coll = None
         if name in _COLLECTIVE_OPS:
             result = _collective_result(name, args, out)
-            self.res.collectives.append(_collective_stat(
-                _COLLECTIVE_OPS[name], _nbytes(result), _group_ranks(args),
-                1.0, self.pod_stride))
+            coll = _collective_stat(_COLLECTIVE_OPS[name], _nbytes(result),
+                                    ranks, 1.0, pod_stride)
             nbytes = _nbytes(result) + _nbytes(
                 [a for a in args if a is not result])
         elif name in _SLICES:
@@ -371,8 +513,7 @@ class _Counter(TorchDispatchMode):
             nbytes = _nbytes((args, kwargs)) + _nbytes(out)
         trans = sum(t.numel() for t in _tensors(out)) \
             if name in _TRANSCENDENTAL else 0
-        return name, flops, nbytes, trans
-
+        return (name, flops, nbytes, trans), coll
 
     def call(self, fn, args):
         """fn(*args), or the replay of an earlier call of the same `fn`
@@ -382,13 +523,17 @@ class _Counter(TorchDispatchMode):
         st, res = self.storages, self.res
         st.sweep()
         if hit is not None:
-            layouts, seq, (flops, nbytes, by_op, trans, colls, peak) = hit
+            layouts, seq, (flops, nbytes, by_op, trans, colls, peak), \
+                logged = hit
             res.flops += flops
             res.bytes_accessed += nbytes
             for name, b in by_op.items():
                 res.bytes_by_op[name] = res.bytes_by_op.get(name, 0) + b
             res.transcendentals += trans
             res.collectives.extend(colls)
+            for sig, n in logged:
+                self.log[sig][0] += n
+            self.replays += 1
             st.peak = max(st.peak, st.live + peak)
             outs = [torch.empty_strided(shape, stride, dtype=dtype,
                                         device="meta")
@@ -396,7 +541,8 @@ class _Counter(TorchDispatchMode):
             st.add(outs)
             return tuple(outs) if seq else outs[0]
         before = (res.flops, res.bytes_accessed, dict(res.bytes_by_op),
-                  res.transcendentals, len(res.collectives))
+                  res.transcendentals, len(res.collectives),
+                  {sig: e[0] for sig, e in self.log.items()})
         entry, outer_peak = st.live, st.peak
         st.peak = entry
         out = fn(*args)
@@ -406,12 +552,15 @@ class _Counter(TorchDispatchMode):
         by_op = {k: v - before[2].get(k, 0)
                  for k, v in res.bytes_by_op.items()
                  if v != before[2].get(k, 0)}
+        logged = [(sig, e[0] - before[5].get(sig, 0))
+                  for sig, e in self.log.items()
+                  if e[0] != before[5].get(sig, 0)]
         seq = isinstance(out, (tuple, list))
         self.calls[key] = (
             [(tuple(t.shape), t.stride(), t.dtype) for t in outs], seq,
             (res.flops - before[0], res.bytes_accessed - before[1], by_op,
              res.transcendentals - before[3],
-             res.collectives[before[4]:], peak))
+             res.collectives[before[4]:], peak), logged)
         return out
 
 
@@ -448,7 +597,8 @@ def _local_tensors(tree) -> List[torch.Tensor]:
 
 def analyze(fn, *args, pod_stride: int = 256) -> HloAnalysis:
     """Run `fn(*args)` and count this rank's work (see the module's
-    docstring); the analysis holds `fn`'s return value as `result`.
+    docstring); the analysis holds `fn`'s return value as `result` and
+    the log of the counted ops as `log`.
     For the trace, `sharding.local_call` is `replayed`, so repeated
     `sharding.on_shards` calls replay their first.
     `pod_stride` is the rank distance at which a group spans pods: a
@@ -464,4 +614,74 @@ def analyze(fn, *args, pod_stride: int = 256) -> HloAnalysis:
     finally:
         sharding.local_call = outer
     res.peak_bytes = counter.storages.peak
+    res.log = counter.log_text()
     return res
+
+
+# ---- a saved log, re-analyzed: the reference's names -------------------
+
+def parse_hlo(text: str) -> List[LoggedOp]:
+    """The op signatures of a saved log (`HloAnalysis.log`), with the
+    times each ran."""
+    return [LoggedOp(**json.loads(line)) for line in text.splitlines()
+            if line and not line.startswith("#")]
+
+
+def log_totals(text: str) -> Dict[str, int]:
+    """A saved log's totals: ops run, signatures, memo hits and
+    replayed calls."""
+    lines = text.splitlines()
+    assert lines and lines[0] == LOG_TITLE, "not an analysis log"
+    return json.loads(lines[1][2:])
+
+
+def analyze_hlo(text: str, *, pod_stride: int = 256) -> HloAnalysis:
+    """flops, bytes_accessed, bytes_by_op, transcendentals and
+    collectives of a saved log, by `_Counter._count` on meta tensors of
+    each signature's layouts times the times it ran: the live trace's
+    counts under the rules as they are now, without tracing. Memory
+    (`peak_bytes`), `while_trips` and `result` are the trace's alone."""
+    res = HloAnalysis()
+    for e in parse_hlo(text):
+        (name, flops, nbytes, trans), coll = _Counter._count(
+            _op(e.op), _dec(e.args), {k: _dec(v) for k, v in
+                                      e.kwargs.items()},
+            _dec(e.out), e.ranks, pod_stride)
+        res.flops += flops * e.n
+        if nbytes:
+            res.bytes_accessed += nbytes * e.n
+            res.bytes_by_op[name] = res.bytes_by_op.get(name, 0) \
+                + nbytes * e.n
+        res.transcendentals += trans * e.n
+        if coll is not None:
+            coll.count *= e.n
+            coll.result_bytes *= e.n
+            coll.ring_bytes *= e.n
+            res.collectives.append(coll)
+    return res
+
+
+# a conversion and the position of the tensor it converts
+_CONVERSIONS = {"_to_copy": 0, "copy_": 1, "copy": 1}
+
+
+def bf16_upcast_f32_bytes(text: str, min_bytes: int = 128 * 2**20) -> int:
+    """The bytes of the DISTINCT f32 shapes of at least `min_bytes` that
+    a logged conversion (`_to_copy`, `copy_`) produced from a bf16
+    tensor, one buffer per shape (the reference's count over its HLO's
+    `convert`s). The dry-run records it as `f32_upcast_bytes`."""
+    shapes: Dict[tuple, int] = {}
+    for e in parse_hlo(text):
+        ns, packet, _ = e.op.split(".")
+        pos = _CONVERSIONS.get(packet)
+        if ns != "aten" or pos is None or len(e.args) <= pos:
+            continue
+        src = e.args[pos]
+        if not (isinstance(src, dict) and "$t" in src
+                and src["$t"][2] == "bfloat16"):
+            continue
+        for t in _tensors(_dec(e.out)):
+            nbytes = t.numel() * t.element_size()
+            if t.dtype == torch.float32 and nbytes >= min_bytes:
+                shapes[tuple(t.shape)] = nbytes
+    return int(sum(shapes.values()))

@@ -126,6 +126,22 @@ def _one_thread() -> None:
     torch.set_num_threads(1)
 
 
+def _warm_device(store: InfiniStore) -> None:
+    """On a card, one small encode and a degraded decode through the
+    store's codec before the worker reports ready, so that the codec
+    kernel's library, its first launches and the copies between host and
+    device are loaded at boot. Under the first request instead they hold
+    the worker's replies, heartbeats among them, for longer than a tight
+    failure detector waits (`HeartbeatConfig(dead_after_s=0.6)`)."""
+    if store.device.type != "cuda":
+        return
+    payload = bytes(range(256)) * 16
+    chunks = store.codec.encode(payload)
+    survivors = {i: c for i, c in enumerate(chunks) if i != 0}
+    assert store.codec.decode(survivors) == payload
+    torch.cuda.synchronize(store.device)
+
+
 def _worker_main(spec: dict) -> None:
     """Entry point of one shard worker process."""
     # the parent handles ^C; an interactive SIGINT must not tear the
@@ -162,6 +178,7 @@ def _worker_main(spec: dict) -> None:
             # shm workers have no reconnect epochs; pin epoch 1 so
             # flight records are attributable like the TCP worker's
             store.obs.set_epoch(1)
+        _warm_device(store)
     except BaseException as e:                        # noqa: BLE001
         send(("err", -1, _portable_exc(e)))
         return

@@ -49,7 +49,8 @@ from typing import Dict, Optional
 import numpy as np
 
 from .clock import Clock
-from .host import _one_thread, _WorkerLoop, _portable_exc, _swallow
+from .host import (_one_thread, _portable_exc, _swallow, _warm_device,
+                   _WorkerLoop)
 from .locks import make_lock
 from .payload import as_u8, to_bytes
 from .store import InfiniStore
@@ -82,6 +83,7 @@ def _net_worker_main(spec: dict) -> None:
                             seed=spec["seed"], name=spec["name"])
         for attr, val in spec.get("cos_latency", {}).items():
             setattr(store.cos, attr, val)
+        _warm_device(store)
         lsock = socket.create_server(("127.0.0.1", 0), backlog=4)
     except BaseException as e:                        # noqa: BLE001
         boot_send(("err", -1, _portable_exc(e)))

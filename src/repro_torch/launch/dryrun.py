@@ -20,6 +20,11 @@ Usage:
 
 `--jobs N` traces N cells at once, each in a process of its own (one
 fake world per process), their records appended to `--out` in cell order.
+`--save-hlo` writes each ok cell's log of counted ops (`HloAnalysis.log`)
+to `experiments/torch_hlo/<arch>_<shape>_<mesh><tag>.txt` under the
+working directory, where `scripts/torch_reanalyze.py` re-runs the
+analyzer's rules over it without tracing (the reference writes its HLO
+to `experiments/hlo/`).
 """
 from __future__ import annotations
 
@@ -32,12 +37,12 @@ import sys
 import time
 import traceback
 from pathlib import Path
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch.distributed.tensor import DTensor
 
-from repro_torch.analysis.hlo import analyze
+from repro_torch.analysis.hlo import analyze, bf16_upcast_f32_bytes
 from repro_torch.configs import (ARCH_NAMES, SHAPES_BY_NAME, get_config,
                                  shapes_for)
 from repro_torch.configs.base import ShapeConfig, padded_vocab
@@ -51,6 +56,7 @@ from repro_torch.launch.steps import build_cell
 from repro_torch.models.transformer import DTYPES
 
 DEFAULT_OUT = Path("experiments/torch_dryrun.jsonl")
+HLO_DIR = Path("experiments/torch_hlo")     # --save-hlo's logs
 MESHES = {False: ("16x16", 256), True: ("2x16x16", 512)}
 
 
@@ -188,9 +194,10 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, *,
              kv_layout: str = "paged", attn_impl: str = "masked",
              wkv_impl: str = "chunked", extra_tag: str = "",
              expert_sharding: str = "", microbatches: int = 0,
-             grad_compress: bool = False, flash_decode: bool = False
-             ) -> dict:
-    """One cell's record. Needs the fake world of the mesh's size."""
+             grad_compress: bool = False, flash_decode: bool = False,
+             save_hlo: bool = False) -> dict:
+    """One cell's record. Needs the fake world of the mesh's size. With
+    `save_hlo` the cell's log goes to `HLO_DIR`."""
     cfg = get_config(arch)
     if expert_sharding and cfg.moe is not None:
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
@@ -205,19 +212,37 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool, *,
         "kv_layout": kv_layout, "attn_impl": attn_impl,
         "wkv_impl": wkv_impl, "tag": extra_tag,
     }
+    save = HLO_DIR / f"{arch}_{shape_name}_{rec['mesh']}{extra_tag}.txt" \
+        if save_hlo else None
     rec.update(record_cell(cfg, shape, mesh, kv_layout=kv_layout,
                            attn_impl=attn_impl, wkv_impl=wkv_impl,
                            grad_compress=grad_compress,
                            flash_decode=flash_decode,
-                           pod_stride=256 if multi_pod else 10**9))
+                           pod_stride=256 if multi_pod else 10**9,
+                           save_hlo=save))
     return rec
 
 
+def collectives_by_op(collectives) -> Dict[str, Dict[str, float]]:
+    """Count, result bytes and ring bytes of `CollectiveStat`s by opcode,
+    "_dcn" appended where the group spans pods."""
+    out: Dict[str, Dict[str, float]] = {}
+    for c in collectives:
+        d = out.setdefault(f"{c.opcode}{'_dcn' if c.dcn else ''}",
+                           {"count": 0.0, "result_bytes": 0.0,
+                            "ring_bytes": 0.0})
+        d["count"] += c.count
+        d["result_bytes"] += c.result_bytes
+        d["ring_bytes"] += c.ring_bytes
+    return out
+
+
 def record_cell(cfg, shape: ShapeConfig, mesh, *, pod_stride: int,
-                **cell_kw) -> dict:
+                save_hlo: Optional[Path] = None, **cell_kw) -> dict:
     """`build_cell(cfg, shape, mesh, **cell_kw)` traced on `mesh` (over
     the fake world of its size): its memory, analysis and collectives,
-    or the error."""
+    or the error. With `save_hlo`, an ok cell's log of counted ops is
+    written there."""
     rec: Dict[str, Any] = {}
     t0 = time.time()
     try:
@@ -227,21 +252,19 @@ def record_cell(cfg, shape: ShapeConfig, mesh, *, pod_stride: int,
         _same_layout(analysis.result, abstract_outputs(cell, shape))
         rec["memory"] = memory_record(cell, analysis.result,
                                       analysis.peak_bytes)
+        rec["memory"]["f32_upcast_bytes"] = bf16_upcast_f32_bytes(
+            analysis.log)
         rec["analysis"] = analysis.summary()
-        rec["collectives_by_op"] = {}
-        for c in analysis.collectives:
-            key = f"{c.opcode}{'_dcn' if c.dcn else ''}"
-            d = rec["collectives_by_op"].setdefault(
-                key, {"count": 0.0, "result_bytes": 0.0, "ring_bytes": 0.0})
-            d["count"] += c.count
-            d["result_bytes"] += c.result_bytes
-            d["ring_bytes"] += c.ring_bytes
+        rec["collectives_by_op"] = collectives_by_op(analysis.collectives)
         if cell["manual"]:
             _check_pod_gather(cell, rec)
         rec["while_trips"] = analysis.while_trips[:50]
         rec["param_count"] = int(cell["model"].param_count())
         rec["trace_s"] = round(t1 - t0, 2)
         rec["ok"] = True
+        if save_hlo is not None:
+            save_hlo.parent.mkdir(parents=True, exist_ok=True)
+            save_hlo.write_text(analysis.log)
     except Exception as e:  # noqa: BLE001 — record the failure, keep going
         rec["ok"] = False
         rec["error"] = f"{type(e).__name__}: {e}"
@@ -297,6 +320,8 @@ def _cell_flags(args) -> list:
         flags.append("--grad-compress")
     if args.flash_decode:
         flags.append("--flash-decode")
+    if args.save_hlo:
+        flags.append("--save-hlo")
     return flags
 
 
@@ -373,6 +398,9 @@ def main(argv=None) -> None:
                     help="shard the KV cache over sequence/pages when "
                          "kv_heads < TP (flash-decoding style)")
     ap.add_argument("--tag", default="")
+    ap.add_argument("--save-hlo", action="store_true",
+                    help=f"write each cell's log of counted ops to "
+                         f"{HLO_DIR}/ (see scripts/torch_reanalyze.py)")
     ap.add_argument("--skip-existing", action="store_true")
     ap.add_argument("--jobs", type=int, default=1,
                     help="cells traced at once, one process each")
@@ -417,7 +445,7 @@ def main(argv=None) -> None:
                            microbatches=args.microbatches,
                            grad_compress=args.grad_compress,
                            flash_decode=args.flash_decode,
-                           extra_tag=args.tag)
+                           extra_tag=args.tag, save_hlo=args.save_hlo)
             f.write(json.dumps(rec) + "\n")
             f.flush()
             if rec["ok"]:

@@ -256,6 +256,12 @@ def rg_lru(u: torch.Tensor, p: Dict[str, torch.Tensor], h0: torch.Tensor):
     return h, h[:, -1, :]
 
 
+def rg_lru_step(u: torch.Tensor, p: Dict[str, torch.Tensor],
+                h0: torch.Tensor):
+    """Single-token RG-LRU update. u: (B,1,W)."""
+    return rg_lru(u, p, h0)
+
+
 # --------------------------------------------------------------------------
 # Blocks
 # --------------------------------------------------------------------------

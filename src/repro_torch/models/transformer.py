@@ -145,6 +145,12 @@ def abstract_params(cfg: ModelConfig) -> Dict[str, torch.Tensor]:
             for k, (shape, _) in param_specs(cfg).items()}
 
 
+def param_count_tree(params) -> int:
+    """Elements of every tensor leaf of `params` (nested dicts, lists,
+    tuples; meta tensors too)."""
+    return sum(int(p.numel()) for p in sharding.tree_leaves(params))
+
+
 # --------------------------------------------------------------------------
 # Layer
 # --------------------------------------------------------------------------

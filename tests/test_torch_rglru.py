@@ -185,3 +185,22 @@ def test_scale_embed_rounds_the_constant_to_the_dtype():
     ones = G.embed_tokens(t, torch.ones((1, 2560), dtype=torch.bfloat16),
                           torch.zeros((1, 1), dtype=torch.int32))
     assert float(ones[0, 0, 0]) == 50.5
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_rg_lru_step_matches_reference(seed):
+    """One token, (B, 1, W), through the reference's `rg_lru_step`."""
+    rng = np.random.default_rng(100 + seed)
+    W, nb = 32, 4
+    p = _block_params(rng, W, nb)
+    u = _rng_f32(rng, (3, 1, W))
+    h0 = _rng_f32(rng, (3, W))
+    jh, jT = jax.jit(JG.rg_lru_step)(
+        jnp.asarray(u), {k: jnp.asarray(v) for k, v in p.items()},
+        jnp.asarray(h0))
+    th, tT = G.rg_lru_step(torch.from_numpy(u),
+                           params_from_numpy(p, device="cpu"),
+                           torch.from_numpy(h0))
+    assert th.shape == (3, 1, W) and tT.shape == (3, W)
+    _close(th, jh)
+    _close(tT, jT)

@@ -1,5 +1,7 @@
-"""The port stands alone: nothing under src/repro_torch/ and not
-chip_smoke.py imports jax or the JAX package, importing the store, the
+"""The port stands alone: nothing under src/repro_torch/, not
+chip_smoke.py and not the port's examples and scripts
+(`examples/torch_*.py`, `scripts/torch_*.py`) imports jax or the JAX
+package, importing the store, the
 scale-out frontends, the devtools, the serving stack, the models, the
 configs, the training stack, the sharding rules, meshes, specs and
 compression (and `chip_smoke.py` with its spawned pod workers' entry
@@ -34,6 +36,11 @@ def _imported_roots(path: Path):
 def test_port_sources_import_neither_jax_nor_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
+    # the port's examples and scripts beside the reference's
+    entry = sorted((ROOT / "examples").glob("torch_*.py")) \
+        + sorted((ROOT / "scripts").glob("torch_*.py"))
+    assert len(entry) >= 8
+    files += entry
     assert len(files) > 20
     bad = [f"{f.relative_to(ROOT)}:{line} imports {mod}"
            for f in files for line, mod in _imported_roots(f)

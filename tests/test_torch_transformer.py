@@ -177,3 +177,17 @@ def test_init_cache_layouts():
     assert tuple(c["k"].shape) == (2, 2, 10, tcfg.num_kv_heads,
                                    tcfg.head_dim)
     assert int(c["len"]) == 0
+
+
+@pytest.mark.parametrize("name", ARCH_NAMES)
+def test_param_count_tree_matches_reference(name):
+    """Every architecture's reduced params, abstract in both packages and
+    nested in a tree, counted element for element."""
+    jcfg = jreduced(jget_config(name))
+    tcfg = reduced(get_config(name))
+    jp, tp = jbuild(jcfg).abstract_params(), build_model(tcfg) \
+        .abstract_params()
+    want = JT.param_count_tree(jp)
+    assert TT.param_count_tree(tp) == want
+    assert TT.param_count_tree({"params": tp, "copies": [tp, (tp,)]}) \
+        == 3 * want
