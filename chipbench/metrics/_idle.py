@@ -1,0 +1,8 @@
+"""Share of the traced window in which no operation ran on the card."""
+
+
+def idle_pct(run):
+    p = run.profile
+    if p is None or not p.device or p.window_s <= 0:
+        return None
+    return 100.0 * (1.0 - p.busy_s() / p.window_s)
