@@ -586,8 +586,14 @@ class InfiniStore:
             except BaseException as e:            # noqa: BLE001
                 fut.set_exception(e)
             return fut
+        # a disabled plane reads no clock
+        t_sub = (time.perf_counter() if obs is not None and obs.enabled
+                 else None)
 
         def run():
+            if obs is not None and t_sub is not None:
+                obs.record("daemon.queue_wait_us",
+                           (time.perf_counter() - t_sub) * 1e6)
             try:
                 fut._resolve(fn())
             except BaseException as e:            # noqa: BLE001
@@ -1759,10 +1765,15 @@ class InfiniStore:
     def _get_many_impl(self, keys, *, as_arrays: bool = False) -> Dict:
         obs = self._obs
         with (obs.span("daemon.get_many", n=len(keys))
-              if obs is not None else NOOP_CM):
+              if obs is not None else NOOP_CM) as span:
             if self.cfg.pipelined_get:
-                return self._get_many_pipelined(keys, as_arrays=as_arrays)
-            return self._get_many_serial(keys, as_arrays=as_arrays)
+                out = self._get_many_pipelined(keys, as_arrays=as_arrays)
+            else:
+                out = self._get_many_serial(keys, as_arrays=as_arrays)
+        if obs is not None and span is not None:
+            # the daemon's host time for the batch: the span's own length
+            obs.record("daemon.get_us", span.dur_s * 1e6)
+        return out
 
     def _plan_gets(self, keys, out: Dict, as_arrays: bool):
         """Shared GET planning: resolve metadata, serve read-after-write
@@ -1922,9 +1933,10 @@ class InfiniStore:
         have: Dict[str, Dict[int, object]] = {f: {} for f in fkeys}
         degraded: List[str] = []
         obs = self._obs
-        t0 = time.perf_counter() if obs is not None else 0.0
+        t0 = (time.perf_counter() if obs is not None and obs.enabled
+              else None)
         self._sms_sweep(fkeys, have, degraded)
-        if obs is not None:
+        if obs is not None and t0 is not None:
             obs.record("get.sms_sweep_us",
                        (time.perf_counter() - t0) * 1e6)
         if degraded:
@@ -1977,13 +1989,14 @@ class InfiniStore:
         while queue or futs:
             if queue:
                 batch, queue = queue[:batch_size], queue[batch_size:]
-                td = time.perf_counter() if obs is not None else 0.0
+                td = (time.perf_counter()
+                      if obs is not None and obs.enabled else None)
                 with (obs.span("get.decode", fragments=len(batch))
                       if obs is not None else NOOP_CM):
                     vals = self.codec.decode_many(
                         [have[f] for f in batch], as_arrays=True)
                 self.stats.inc("decode_batches")
-                if obs is not None:
+                if obs is not None and td is not None:
                     obs.record("get.decode_batch_us",
                                (time.perf_counter() - td) * 1e6)
                 out.update(zip(batch, vals))

@@ -6,8 +6,15 @@ Cost discipline (mirrors `repro_torch.core.faults.FaultPlan`): the plane is
 OFF by default — `StoreConfig.obs` is None and every instrumentation
 site is guarded by one `obs is not None` check. An attached-but-
 disabled plane (`enabled=False`) costs one early-returning method call
-per site (`benchmarks/fault_soak.py` gates that at ≤2% of PUT-ack
-latency). Only an enabled plane allocates spans and touches buckets.
+per site, and its methods read no clock (`tests/test_torch_obs_timeline.py`
+holds them to that). Only an enabled plane allocates spans and touches
+buckets.
+
+Timelines: an enabled plane also keeps, per span site, the
+(start_ns, end_ns) of its last `TIMELINE_CAPACITY` spans on the Unix
+clock that `torch.profiler` stamps its events with (`timeline(site)`),
+so a traced run can say what the store was doing in each stretch the
+device sat idle. Like the rings, a timeline is per process.
 
 Process model: the plane pickles into worker processes with the
 `StoreConfig` that carries it (like `FaultPlan`, each process gets an
@@ -156,11 +163,22 @@ class ObsPlane:
     def _finish_span(self, span) -> None:
         self._tracer.add(span)
         # mirror to the flight file so a SIGKILL'd worker's spans are
-        # recoverable (tagged with their epoch) instead of lost
+        # recoverable (tagged with their epoch) instead of lost; the
+        # clock fields stay out, or the record outgrows its slot
         if self._recorder.path is not None:
             d = span.to_dict()
+            for k in ("start_ns", "end_ns", "tid"):
+                del d[k]
             d["kind"] = "span"
             self._recorder.mirror(d)
+
+    # ---- timelines ----------------------------------------------------------
+
+    def timeline(self, site: str):
+        """(start_ns, end_ns) of the site's last `TIMELINE_CAPACITY`
+        (2^17) finished spans in this process, oldest first: an (n, 2)
+        int64 array, empty for a site with no span."""
+        return self._tracer.timeline(site)
 
     # ---- forensics --------------------------------------------------------
 

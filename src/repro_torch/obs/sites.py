@@ -23,6 +23,8 @@ HISTOGRAM_SITES = frozenset({
     "get.sms_sweep_us",            # grouped SMS sweep stage of a GET batch
     "get.cos_fallback_us",         # one demand COS chunk-fetch task
     "get.decode_batch_us",         # one ready-order decode_many batch
+    "daemon.queue_wait_us",        # a daemon task's wait: submit -> start
+    "daemon.get_us",               # daemon host time of one GET batch
     "wb.persist_us",               # one background COS writeback PUT
     "rpc.roundtrip_us",            # parent->worker RPC, send to reply
     "transport.heartbeat_age_us",  # pong age sampled at each heartbeat tick
@@ -67,6 +69,8 @@ METRIC_SITES = frozenset({
     "get.sms_sweep_us",
     "get.cos_fallback_us",
     "get.decode_batch_us",
+    "daemon.queue_wait_us",
+    "daemon.get_us",
     "wb.persist_us",
     "rpc.roundtrip_us",
     "transport.heartbeat_age_us",
