@@ -212,6 +212,14 @@ def event_ms(fn, reps: int, warmup: int = 2, spin: bool = True) -> float:
     return start.elapsed_time(end) / reps
 
 
+def codec_launches() -> int:
+    """The codec kernel's launches in this process since its counts were
+    last set to 0: its products (`launches`) and its gathered, framed
+    decodes (`gather_launches`)."""
+    from repro_torch.kernels.rs_gf256 import kernel
+    return kernel.launches + kernel.gather_launches
+
+
 def lat(seconds) -> str:
     """Median and max of per-object latencies, in ms, with the count."""
     ms = sorted(x * 1e3 for x in seconds)
@@ -472,6 +480,82 @@ def gf_timing(dev, gen, rng, card, loop_ops=None) -> dict:
     return timing
 
 
+def gather_timing(dev, gen, card) -> dict:
+    """Phase 5's gathered decode: a 100 MB object's fragment (L 10,485,761)
+    with chunk 0 lost and with chunks 0-1 lost, decoded by one
+    `gf256_small_gather` launch from the encode's chunk tensors into the
+    codec's framed buffer, beside its byte bound ((k + k) L + k k bytes)
+    and the staged path it replaces, timed as a whole and by stage: the
+    k survivor copies into a stacked buffer, the product, the copy of
+    its rows into the framed buffer. The plain version (`ref.py`) is
+    checked against and timed once. Returns {label: timing}."""
+    import torch
+    from repro_torch.core import ec
+    from repro_torch.kernels.rs_gf256 import kernel
+    from repro_torch.kernels.rs_gf256.ref import gf256_gather_framed_ref
+    k = 10
+    codec = ec.RSCodec(ec.ECConfig(k, 2), device=dev)
+    payload = torch.randint(0, 256, (100 * MB,), dtype=torch.uint8,
+                            device=dev, generator=gen)
+    chunks = codec.encode_many([payload], as_arrays=True)[0]
+    L = chunks[0].numel()
+    flat = ec._framed(k * L, dev)
+    surv = ec._stacked(k, L, dev)
+    timing = {}
+    for label, lost in (("gathered decode, chunk 0 lost", (0,)),
+                        ("gathered decode, chunks 0-1 lost", (0, 1))):
+        idx = tuple(i for i in range(k + 2) if i not in lost)[:k]
+        G = codec._decode_matrix(idx)
+        rows = [chunks[i] for i in idx]
+
+        def gathered():
+            kernel.gf256_gather_framed_cuda(G, [rows], [flat])
+
+        def copies():
+            for r, row in enumerate(rows):
+                surv[r].copy_(row)
+
+        def product():
+            return kernel.gf256_matmul_cuda(G, surv)
+
+        dec = product()
+
+        def framed_copy():
+            flat.view(k, L).copy_(dec)
+
+        def staged():
+            copies()
+            flat.view(k, L).copy_(product())
+
+        gathered()
+        want = torch.empty_like(flat)
+        t = time.perf_counter()
+        gf256_gather_framed_ref(G, [rows], [want])
+        torch.cuda.synchronize()
+        plain = (time.perf_counter() - t) * 1e3
+        assert torch.equal(flat, want), label
+        assert torch.equal(flat[4:4 + 100 * MB], payload), label
+        del want
+        b_ms, by, nbytes = gf_bound_ms(k, k, L)
+        ms = event_ms(gathered, reps=20)
+        parts = {name: event_ms(fn, reps=20) for name, fn in (
+            ("copies", copies), ("product", product),
+            ("framed_copy", framed_copy), ("staged", staged))}
+        timing[label] = dict(m=k, k=k, L=L, ms=ms, plain_ms=plain,
+                             bound_ms=b_ms, bound_by=by, bytes=nbytes,
+                             staged_ms=parts)
+        print(f"kernel gf256 {label} (k={k}, L={L}, {kernel.row_plan(G)}, "
+              f"output at {flat.data_ptr() % 16} mod 16): {ms * 1e3:.2f} us"
+              f" = {100 * b_ms / ms:.1f}% of its bound | bound "
+              f"{b_ms * 1e3:.2f} us by {by} ({nbytes} bytes) | staged path "
+              f"{parts['staged'] * 1e3:.2f} us: {k} survivor copies "
+              f"{parts['copies'] * 1e3:.2f} + product "
+              f"{parts['product'] * 1e3:.2f} + framed copy "
+              f"{parts['framed_copy'] * 1e3:.2f} us | plain {plain:.1f} ms "
+              f"(host clock) | {card}")
+    return timing
+
+
 # ---- serving: phases 6-8 ---------------------------------------------------
 
 QWEN3 = "qwen3-1.7b"
@@ -706,14 +790,15 @@ def serve(dev, work, card) -> dict:
 
     # ---- phase 7: the main path ----------------------------------------
     torch.cuda.synchronize()
-    rms_kernel.launches = pa_kernel.launches = gf_kernel.launches = 0
+    rms_kernel.launches = pa_kernel.launches = 0
+    gf_kernel.launches = gf_kernel.gather_launches = 0
     t = time.perf_counter()
     out = eng.generate(prompts, NEW_TOKENS)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
     launches = {"rmsnorm": rms_kernel.launches,
                 "paged_decode_attention": pa_kernel.launches,
-                "gf256_matmul_bitsliced": gf_kernel.launches}
+                "gf256_matmul_bitsliced": codec_launches()}
     per_step_rms = 4 * cfg.num_layers + 1
     assert launches["paged_decode_attention"] == \
         cfg.num_layers * NEW_TOKENS, launches
@@ -793,7 +878,7 @@ def serve(dev, work, card) -> dict:
     last = torch.from_numpy(out[:, -1:]).to(dev)
     ref_toks, _ = decode_on(eng, ref_cache, last, RESUME_STEPS)
     del ref_cache, k_ref, v_ref
-    gf_kernel.launches = 0
+    gf_kernel.launches = gf_kernel.gather_launches = 0
     t = time.perf_counter()
     for _, key in seq0:
         kv.evict_page_to_cos(key)
@@ -806,7 +891,7 @@ def serve(dev, work, card) -> dict:
     restored = eng.resume("seq0", 0)
     torch.cuda.synchronize()
     resume_s = time.perf_counter() - t
-    gf_evict = gf_kernel.launches
+    gf_evict = codec_launches()
     assert restored == len(seq0) and gf_evict >= len(seq0), gf_evict
     for _, key in seq0:
         assert torch.equal(kv.page_payload(0, kv.pages[key][2]),
@@ -1352,11 +1437,11 @@ def train_phase(dev, card: str, cfg) -> dict:
     store = make_store_for_checkpoints(device=dev.type)
     ck = TimedCheckpointer(store)
     torch.cuda.synchronize()
-    gf_kernel.launches = 0
+    gf_kernel.launches = gf_kernel.gather_launches = 0
     first = train(cfg, shape, steps=CKPT_STEP, checkpointer=ck,
                   checkpoint_every=CKPT_STEP, **run)
     torch.cuda.synchronize()
-    gf_save = gf_kernel.launches
+    gf_save = codec_launches()
     assert gf_save > 0, gf_save
     assert len(ck.save_s) == 1 and ck.latest_step() == CKPT_STEP
     saved = first.state
@@ -1375,14 +1460,14 @@ def train_phase(dev, card: str, cfg) -> dict:
         store.inject_failure(fid)
     rec = store.recovery.stats
     rec0 = rec.local_recoveries + rec.parallel_recoveries
-    gf_kernel.launches = 0
+    gf_kernel.launches = gf_kernel.gather_launches = 0
     torch.cuda.synchronize()
     t = time.perf_counter()
     resumed = train(cfg, shape, steps=TRAIN_STEPS, resume=True,
                     checkpointer=ck, **run)
     torch.cuda.synchronize()
     resume_s = time.perf_counter() - t
-    gf_restore = gf_kernel.launches
+    gf_restore = codec_launches()
     recoveries = rec.local_recoveries + rec.parallel_recoveries - rec0
     assert resumed.restored_from == CKPT_STEP, resumed.restored_from
     assert gf_restore + recoveries > 0, (gf_restore, recoveries)
@@ -1391,13 +1476,13 @@ def train_phase(dev, card: str, cfg) -> dict:
                                rtol=LOSS_TOL, atol=LOSS_TOL)
     del resumed.state
     torch.cuda.empty_cache()
-    gf_kernel.launches = 0
+    gf_kernel.launches = gf_kernel.gather_launches = 0
     torch.cuda.synchronize()
     t = time.perf_counter()
     back = ck.restore(CKPT_STEP, like=saved)
     torch.cuda.synchronize()
     restore_s = time.perf_counter() - t
-    gf_restore2 = gf_kernel.launches
+    gf_restore2 = codec_launches()
     for (name, a), (_, b) in zip(_leaf_paths(saved), _leaf_paths(back)):
         assert b.device == a.device and b.dtype == a.dtype, name
         assert torch.equal(a, b), name
@@ -1712,7 +1797,7 @@ def scale_out_phase(dev, work: Path, card: str, rand_u8, single: dict,
     t_a = time.perf_counter()
     st = ShardedStore(cfg("a"), num_shards=SHARDS, seed=SEED)
     assert (st.cfg.ec.k, st.cfg.ec.p) == (10, 2) and st.device == dev
-    kernel.launches = 0
+    kernel.launches = kernel.gather_launches = 0
     put_s = put_all(st, values)
     report("a ShardedStore", st, put_s, get_all(st, objects, sync))
     two["a"] = two_pc(st, rand_u8, sync, unit, "a")
@@ -1725,7 +1810,7 @@ def scale_out_phase(dev, work: Path, card: str, rand_u8, single: dict,
     inv0 = shard.codec.cache_info()["inversions"]
     read_back(st, {key: objects[key]}, sync)
     assert shard.codec.cache_info()["inversions"] > inv0
-    launches = kernel.launches
+    launches = codec_launches()
     assert launches >= len(values), launches
     assert st.close()
     del st, shard
@@ -2145,14 +2230,15 @@ def moe_serve(dev, card, cfg) -> dict:
     prompts = rng.integers(0, cfg.vocab_size, (SLOTS, PROMPT)).astype(
         np.int32)
     torch.cuda.synchronize()
-    rms_kernel.launches = pa_kernel.launches = gf_kernel.launches = 0
+    rms_kernel.launches = pa_kernel.launches = 0
+    gf_kernel.launches = gf_kernel.gather_launches = 0
     t = time.perf_counter()
     out = eng.generate(prompts, MOE_NEW_TOKENS)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t
     launches = {"rmsnorm": rms_kernel.launches,
                 "paged_decode_attention": pa_kernel.launches,
-                "gf256_matmul_bitsliced": gf_kernel.launches}
+                "gf256_matmul_bitsliced": codec_launches()}
     per_step_rms = 2 * cfg.num_layers + 1
     assert launches["paged_decode_attention"] == \
         cfg.num_layers * MOE_NEW_TOKENS, launches
@@ -2449,7 +2535,8 @@ def rwkv_phase(dev, work, card, cfg) -> dict:
     rwkv6.wkv_chunked = capture
     try:
         torch.cuda.synchronize()
-        rms_kernel.launches = gf_kernel.launches = 0
+        rms_kernel.launches = 0
+        gf_kernel.launches = gf_kernel.gather_launches = 0
         t = time.perf_counter()
         logits, state = model.prefill(params, {"tokens": prompts})
         tok = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
@@ -2476,24 +2563,24 @@ def rwkv_phase(dev, work, card, cfg) -> dict:
                                     spill_dir=str(work / "spill-state")),
                         seed=SEED)
     ck = Checkpointer(store)
-    gf_kernel.launches = 0
+    gf_kernel.launches = gf_kernel.gather_launches = 0
     torch.cuda.synchronize()
     t = time.perf_counter()
     ck.save(0, state)
     torch.cuda.synchronize()
     save_s = time.perf_counter() - t
-    gf_save = gf_kernel.launches
+    gf_save = codec_launches()
     assert store.flush_writeback(timeout=600.0)
     fid = store.chunk_map["ckpt/00000000/wkv/s0|1/f0#0"]
     store.inject_failure(fid)
     inv0 = store.codec.cache_info()["inversions"]
-    gf_kernel.launches = 0
+    gf_kernel.launches = gf_kernel.gather_launches = 0
     torch.cuda.synchronize()
     t = time.perf_counter()
     back = ck.restore(0, like=state)
     torch.cuda.synchronize()
     restore_s = time.perf_counter() - t
-    gf_restore = gf_kernel.launches
+    gf_restore = codec_launches()
     inv = store.codec.cache_info()["inversions"]
     assert gf_save > 0 and gf_restore > 0 and inv > inv0, (gf_save,
                                                            gf_restore, inv)
@@ -3860,7 +3947,7 @@ def train_on_mesh(dev, mesh, run, checkpointer) -> tuple:
     ck = run["ckpt"]
     _sync(dev)
     _reset_peak(dev)
-    rms_kernel.launches = gf_kernel.launches = 0
+    rms_kernel.launches = gf_kernel.launches = gf_kernel.gather_launches = 0
     before = dict(shared_card.moved)
     t = time.perf_counter()
     res = train(run["cfg"], _train_shape(run), steps=run["steps"],
@@ -3872,7 +3959,7 @@ def train_on_mesh(dev, mesh, run, checkpointer) -> tuple:
     leaves = tree_leaves(res.state)
     out = {"losses": res.losses, "grad_norms": res.grad_norms,
            "step_s": res.step_seconds, "wall": time.perf_counter() - t,
-           "rms": rms_kernel.launches, "gf": gf_kernel.launches,
+           "rms": rms_kernel.launches, "gf": codec_launches(),
            "coll": {k: shared_card.moved[k] - before[k]
                     for k in ("seconds", "bytes")},
            "peak_bytes": _peak(dev),
@@ -3982,12 +4069,12 @@ def _elastic(dev, run, ck, saved) -> dict:
     out = {"leaves": len(back), "same": all(
         torch.equal(a, b) for a, b in zip(back, tree_leaves(saved)))}
     del back, saved
-    gf_kernel.launches = rms_kernel.launches = 0
+    gf_kernel.launches = gf_kernel.gather_launches = rms_kernel.launches = 0
     res = train(run["cfg"], _train_shape(run), steps=steps + 1,
                 num_microbatches=run["micro"], checkpointer=ck, resume=True,
                 mesh=make_test_mesh(1, 1, device=dev.type), device=dev.type)
     out.update(restored_from=res.restored_from, loss=res.losses[0],
-               gf_restore=gf_kernel.launches, rms=rms_kernel.launches)
+               gf_restore=codec_launches(), rms=rms_kernel.launches)
     dist.destroy_process_group()
     assert ck.store.close()
     return out
@@ -4965,8 +5052,9 @@ def finish_example(name: str, started,
 
 class CodecCheck:
     """While installed, every GF(256) product the codec makes
-    (`core.ec.gf256_matmul`) is held bit for bit to the plain version on
-    the same operands."""
+    (`core.ec.gf256_matmul`) and every gathered, framed decode
+    (`core.ec.gf256_gather_framed`) is held bit for bit to the plain
+    version on the same operands."""
 
     def __init__(self):
         from repro_torch.core import ec
@@ -4974,8 +5062,11 @@ class CodecCheck:
 
     def __enter__(self):
         import torch
-        from repro_torch.kernels.rs_gf256.ref import gf256_matmul_ref
+        from repro_torch.kernels.rs_gf256.kernel import GATHER_FRAGS
+        from repro_torch.kernels.rs_gf256.ref import (
+            gf256_gather_framed_ref, gf256_matmul_ref)
         self.orig = self.ec.gf256_matmul
+        self.orig_gather = self.ec.gf256_gather_framed
 
         def checked(G, X, *args, **kw):
             out = self.orig(G, X, *args, **kw)
@@ -4984,11 +5075,21 @@ class CodecCheck:
             self.calls += 1
             return out
 
+        def checked_gather(G, chunks, outs, **kw):
+            self.orig_gather(G, chunks, outs, **kw)
+            want = [torch.empty_like(out) for out in outs]
+            gf256_gather_framed_ref(G, chunks, want)
+            for out, w in zip(outs, want):
+                assert torch.equal(out, w), (out.numel(), out.device)
+            self.calls += -(-len(outs) // GATHER_FRAGS)   # its launches
+
         self.ec.gf256_matmul = checked
+        self.ec.gf256_gather_framed = checked_gather
         return self
 
     def __exit__(self, *exc):
         self.ec.gf256_matmul = self.orig
+        self.ec.gf256_gather_framed = self.orig_gather
 
 
 def example_in_process(name: str) -> tuple:
@@ -5015,11 +5116,12 @@ def example_in_process(name: str) -> tuple:
     try:
         with ShardKernelCheck() as check, CodecCheck() as codec, \
                 contextlib.redirect_stdout(buf):
-            kernel.launches = rms_kernel.launches = pa_kernel.launches = 0
+            kernel.launches = kernel.gather_launches = 0
+            rms_kernel.launches = pa_kernel.launches = 0
             t = time.perf_counter()
             mod.main([])
             wall = time.perf_counter() - t
-            launches = {"gf256": kernel.launches,
+            launches = {"gf256": codec_launches(),
                         "rmsnorm": rms_kernel.launches,
                         "paged_decode_attention": pa_kernel.launches}
     finally:
@@ -5091,7 +5193,7 @@ def examples_phase(card: str, cpu: dict) -> dict:
         print(f"phase 15 torch_{name}.py on the card in {wall:.3f} s: "
               f"launches {json.dumps(got)}; kernel calls held to the plain "
               f"version {json.dumps({k: [v[0], '%.3e' % v[1]] for k, v in report.items()})}"
-              f", {codec_calls} codec products bit for bit | {card}")
+              f", {codec_calls} codec launches bit for bit | {card}")
     gate = start_example("gate", path=ROOT / "scripts" /
                          "torch_check_metrics_dump.py")
     for name in EXAMPLES_SPAWNING:
@@ -5249,13 +5351,13 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
 
     counts = {}
-    kernel.launches = 0
+    kernel.launches = kernel.gather_launches = 0
     put_s = {}
     for key, val in values.items():
         t = time.perf_counter()
         assert store.put(key, val) == 1
         put_s[key] = time.perf_counter() - t
-    counts["put"] = kernel.launches
+    counts["put"] = codec_launches()
     assert counts["put"] >= len(values), counts
     assert store.flush_writeback(timeout=600.0)
     large = [f"large/{i}" for i in range(15)]   # device-tensor payloads
@@ -5263,7 +5365,7 @@ def main(argv=None) -> int:
     print(f"phase 2 PUT: {len(values)} objects, {total / MB:.0f} MB "
           f"({total} bytes) acked; kernel launches {counts['put']}")
 
-    kernel.launches = 0
+    kernel.launches = kernel.gather_launches = 0
     get_s = {}
     for key, want in objects.items():
         t = time.perf_counter()
@@ -5277,7 +5379,7 @@ def main(argv=None) -> int:
         got = store.get(key)
         get_bytes_s[key] = time.perf_counter() - t
         assert got == objects[key].cpu().numpy().tobytes(), key
-    counts["get"] = kernel.launches
+    counts["get"] = codec_launches()
     get_large_mbs = 100 * len(large) / sum(get_s[k] for k in large)
     get_bytes_mbs = 100 * len(large) / sum(get_bytes_s[k] for k in large)
     print(f"phase 2 GET: {len(objects)} objects read back intact "
@@ -5289,7 +5391,7 @@ def main(argv=None) -> int:
     fid = store.chunk_map["large/0|1/f0#0"]
     store.inject_failure(fid)
     inv0 = store.codec.cache_info()["inversions"]
-    kernel.launches = 0
+    kernel.launches = kernel.gather_launches = 0
     deg_s = {}
     for key in large:
         t = time.perf_counter()
@@ -5297,14 +5399,16 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         deg_s[key] = time.perf_counter() - t
         assert torch.equal(arr, objects[key]), key
-    counts["degraded_get"] = kernel.launches
+    counts["degraded_get"] = codec_launches()
     info = store.codec.cache_info()
     assert info["inversions"] >= 1 and info["inversions"] > inv0, info
+    # every degraded fragment decodes in a gathered launch, none staged
+    assert kernel.launches == 0 and store.codec.staged_decodes == 0
     assert counts["degraded_get"] >= len(large), counts
     deg_mbs = 100 * len(large) / sum(deg_s.values())
     print(f"phase 3 degraded GET: slab {fid} reclaimed, {len(large)} x "
-          f"100 MB read back intact through parity; codec {info}; kernel "
-          f"launches {counts['degraded_get']}")
+          f"100 MB read back intact through parity; codec {info}; gathered "
+          f"decode launches {counts['degraded_get']}, products 0")
 
     # journal's device-to-host copy of one 100 MB fragment (ack path),
     # and the host link's rate for the same bytes into pinned memory: the
@@ -5353,12 +5457,12 @@ def main(argv=None) -> int:
         assert st.put(key, val) == 1
     assert st.cos.list_keys("chunk/") == []
     spill_dir = st.simulate_crash()
-    kernel.launches = 0
+    kernel.launches = kernel.gather_launches = 0
     t = time.perf_counter()
     st2 = InfiniStore(StoreConfig(spill_dir=spill_dir), seed=SEED)
     torch.cuda.synchronize()
     replay_s = time.perf_counter() - t
-    counts["replay"] = kernel.launches
+    counts["replay"] = codec_launches()
     assert counts["replay"] >= 1, counts
     assert st2.stats.spill_replayed_metas == len(acked)
     for key, val in acked.items():
@@ -5380,6 +5484,7 @@ def main(argv=None) -> int:
     # ---- phase 5: timing -----------------------------------------------
     loop_ops = gf_loop_ops(libs[0])
     timing = gf_timing(dev, gen, rng, card, loop_ops)
+    timing.update(gather_timing(dev, gen, card))
     # end-to-end byte bounds for one 100 MB object (chunk length L_main):
     # PUT and `get` must carry the payload across the host link (the
     # journal needs host bytes before the ack; `get` returns bytes) at
@@ -5421,12 +5526,11 @@ def main(argv=None) -> int:
           f"{get_bytes_mbs:.1f} MB/s, {lat(get_bytes_s[k] for k in large)}"
           f", {vs(get_bytes_mbs, get_b, 'host link')} | {card}")
     deg_med = sorted(deg_s.values())[len(deg_s) // 2] * 1e3
-    dec = timing["decode, chunk 0 lost"]
+    dec = timing["gathered decode, chunk 0 lost"]
     print(f"degraded GET 100 MB objects: get_array {deg_mbs:.1f} MB/s, "
           f"{lat(deg_s.values())}, {vs(deg_mbs, deg_b, deg_by)}; its "
-          f"decode product (chunk 0 lost) {dec['ms'] * 1e3:.2f} us = "
-          f"{100 * dec['ms'] / deg_med:.1f}% of the median (design: "
-          f"{dec['design_ops']} integer ops) | {card}")
+          f"gathered decode (chunk 0 lost) {dec['ms'] * 1e3:.2f} us = "
+          f"{100 * dec['ms'] / deg_med:.1f}% of the median | {card}")
     print(f"replay: {replay_s:.3f} s for {replay_mb:.1f} MB | {card}")
     print("launches per phase: " + json.dumps(counts))
     single = {"put": rate(objects, put_s), "put_large": put_large_mbs,

@@ -8,15 +8,24 @@ hand-written Hopper kernel on a CUDA codec, the plain PyTorch version on
 a CPU codec. Host-side matrix math (Cauchy rows, Gauss-Jordan inverses)
 stays numpy. Chunks are byte-identical to the JAX package's `RSCodec`.
 
-Batched data path: `encode_many` / `decode_many` stack every fragment of
-a request column-wise into ONE (k, sum L) GF(256) matmul instead of one
-dispatch per fragment, and decode matrices are LRU-cached by survivor
-index tuple so repeated degraded reads with the same survivor set pay
-for exactly one O(k^3) Gauss-Jordan inversion (`cache_info()` exposes
-hit accounting). Encode writes the framed payload straight into one
+Batched data path: `encode_many` stacks every fragment of a request
+column-wise into ONE (k, sum L) GF(256) matmul instead of one dispatch
+per fragment, and decode matrices are LRU-cached by survivor index
+tuple so repeated degraded reads with the same survivor set pay for
+exactly one O(k^3) Gauss-Jordan inversion (`cache_info()` exposes hit
+accounting). Encode writes the framed payload straight into one
 preallocated stacked buffer — a host payload crosses to the device
 exactly once, into that buffer. Stacked buffers get a row pitch rounded
 up to 16 bytes, so the kernel reads aligned rows.
+
+A degraded decode whose matrix `gathers` (every RS(10+2) and RS(4+2)
+survivor set) is one `gf256_gather_framed` per survivor group: each
+fragment's survivors are read where they lie (slab-resident tensors in
+place; host chunks cross to the device once) and its rows land straight
+in its framed buffer, with no survivor buffer and no unframing copy.
+Other matrices stage as the JAX package does: survivors copied into one
+stacked buffer, one product, rows copied into each framed buffer
+(`staged_decodes` counts a CUDA codec's fragments decoded so).
 """
 from __future__ import annotations
 
@@ -30,8 +39,9 @@ import numpy as np
 import torch
 
 from repro_torch.core.payload import (as_u8, payload_nbytes,
-                                      require_device, to_bytes)
-from repro_torch.kernels.rs_gf256.ops import gf256_matmul
+                                      require_device, to_bytes, to_device)
+from repro_torch.kernels.rs_gf256.ops import (gathers, gf256_gather_framed,
+                                              gf256_matmul)
 from repro_torch.kernels.rs_gf256.ref import (cauchy_parity_matrix,
                                               gf_inv_matrix_np)
 
@@ -73,6 +83,10 @@ class RSCodec:
                  inv_cache_size: int = 64):
         self.cfg = cfg
         self.device = require_device(device)
+        # the device as a tensor there reports it (index included): a
+        # flat uint8 chunk already on it is read where it lies
+        self._on = torch.empty(0, dtype=torch.uint8,
+                               device=self.device).device
         self._parity = cauchy_parity_matrix(cfg.k, cfg.p)
         self._gen = np.concatenate(
             [np.eye(cfg.k, dtype=np.uint8), self._parity], axis=0)
@@ -84,6 +98,9 @@ class RSCodec:
         self._cache_hits = 0
         self._cache_misses = 0
         self._inversions = 0
+        # fragments a CUDA codec decoded through staging (no gathered
+        # decode for their matrix); guarded by _inv_lock
+        self.staged_decodes = 0
 
     # ---- encode -------------------------------------------------------------
 
@@ -156,14 +173,16 @@ class RSCodec:
 
     def decode_many(self, chunk_maps: Sequence[Dict[int, object]], *,
                     as_arrays: bool = False) -> List:
-        """Batch decode: fragments sharing a survivor set are stacked
-        column-wise into one device buffer and reconstructed by one
-        cached-inverse matmul.
+        """Batch decode: fragments sharing a survivor set are
+        reconstructed together by their cached inverse, in one gathered
+        decode straight into their framed buffers where the matrix
+        `gathers`, else stacked column-wise into one device buffer for
+        one matmul.
 
         Chunks may be bytes, numpy arrays (COS reads) or tensors
-        (slab-resident); host chunks cross to the device once, into the
-        survivor buffer. With `as_arrays=True` results are flat uint8
-        tensors on the codec's device (the GET-side zero-copy path)."""
+        (slab-resident); host chunks cross to the device once. With
+        `as_arrays=True` results are flat uint8 tensors on the codec's
+        device (the GET-side zero-copy path)."""
         k = self.cfg.k
         ident = tuple(range(k))
         results: List = [b""] * len(chunk_maps)
@@ -188,6 +207,19 @@ class RSCodec:
                 groups.setdefault(idx, []).append(pos)
         for idx, positions in groups.items():
             inv = self._decode_matrix(idx)
+            if gathers(inv):
+                chunks = [[self._in_place(chunk_maps[pos][i]) for i in idx]
+                          for pos in positions]
+                flats = [_framed(k * rows[0].numel(), self.device)
+                         for rows in chunks]
+                # a CPU codec's plain version stages into our product
+                gf256_gather_framed(inv, chunks, flats, matmul=gf256_matmul)
+                for pos, flat in zip(positions, flats):
+                    results[pos] = self._unframe_t(flat, as_arrays)
+                continue
+            if self.device.type == "cuda":
+                with self._inv_lock:
+                    self.staged_decodes += len(positions)
             clens = [payload_nbytes(chunk_maps[pos][idx[0]])
                      for pos in positions]
             surv = _stacked(k, int(sum(clens)), self.device)
@@ -205,6 +237,16 @@ class RSCodec:
                 results[pos] = self._unframe_t(flat, as_arrays)
                 off += clen
         return results
+
+    def _in_place(self, chunk) -> torch.Tensor:
+        """A chunk as a flat uint8 tensor on the codec's device: a
+        slab-resident one as it lies, anything else through `to_device`
+        (a host chunk crosses once)."""
+        if type(chunk) is torch.Tensor and chunk.dtype == torch.uint8 \
+                and chunk.dim() == 1 and chunk.is_contiguous() \
+                and chunk.device == self._on:
+            return chunk
+        return to_device(chunk, self.device)
 
     def _decode_matrix(self, idx: Tuple[int, ...]) -> np.ndarray:
         with self._inv_lock:

@@ -2520,6 +2520,7 @@ class InfiniStore:
                     "prefetch_wasted": stats["prefetch_wasted"],
                     "cos_fallback_reads": stats["cos_fallback_reads"],
                     "decode_batches": stats["decode_batches"],
+                    "staged_decodes": self.codec.staged_decodes,
                     "pending_migrations": len(self._pending_migrations),
                     "prefetch": self.prefetcher.snapshot()},
                 "meta_log": {

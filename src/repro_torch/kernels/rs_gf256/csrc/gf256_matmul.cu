@@ -37,16 +37,56 @@
 // aligned with a pitch of at least L rounded up to 16 (the wrapper
 // allocates them so); the pad columns of the last chunk are written.
 //
-// Two kernels:
+// Three kernels:
 // - gf256_small<K, D>: the store's shapes, k in {4, 10}, m <= 16, at most
-//   2 dense rows (every RS(10+2) and RS(4+2) encode and decode). The
+//   2 dense rows (every RS(10+2) and RS(4+2) encode). The
 //   plan and the dense rows' tables (400 bytes) travel by value as a
 //   __grid_constant__ parameter: every table word is a warp-uniform
 //   constant-bank operand, not a shared-memory load.
+// - gf256_small_gather<K, D>: the same shapes' decodes (every RS(10+2)
+//   and RS(4+2) degraded read), gathered and framed; see below.
 // - gf256_general: any m, k up to 255 and any G. Groups of kRows output
 //   rows on gridDim.y; each group's tables and coefficient kinds sit in
 //   shared memory (32 bytes a coefficient, two 16-byte broadcast loads
 //   per coefficient and chunk, i.e. per 4 words).
+//
+// The gathered, framed decode (gf256_small_gather) replaces no kernel of
+// the JAX package. There the codec (src/repro/core/ec.py::decode_many)
+// stacks the survivor chunks column-wise in one host array before the
+// product and reshapes the product's rows into the framed payload: host
+// array work beside the TPU, no pass of the accelerator. Done on the
+// card as separate device copies, the same staging cost four of the six
+// object-sizes of traffic a degraded read moved, and a dozen host calls
+// on the store's one daemon thread.
+// Here one launch decodes up to kGatherFrags fragments: the plan and, per
+// fragment, its K survivor pointers (where the slabs hold the chunks,
+// each at any alignment), its output pointer and its chunk length L
+// travel by value in one __grid_constant__ parameter (GatherParams), so
+// the launch copies nothing host-to-device. Output row i of a fragment is
+// written at byte i * L of its framed buffer: the 4-byte length header
+// and the payload land where the codec's unframing reads them, and rows
+// follow each other with no pad, so no row start need be aligned (the
+// codec's framed buffer begins at 12 mod 16). A thread owns a 16-byte
+// column chunk of every row, as in gf256_small: each input byte is read
+// once (load_chunk realigns a survivor that is not 16-byte aligned). Its
+// output chunk straddles two aligned 16-byte blocks; the thread stores
+// the first one whole, its head after the tail of chunk c - 1, which a
+// warp shuffle brings from lane - 1 and lane 31 of the warp before
+// leaves in shared memory for lane 0 (store_framed). Only at a block's
+// two ends, and at a row's first and last byte, is a block shared with
+// a thread that cannot see this one's bytes: those pieces are stored a
+// byte a lane by the whole warp, one edge lane at a time. So every output
+// byte is written exactly once by one thread and no two stores overlap,
+// at a row boundary or between blocks, for any L >= 1 (below 16 one
+// aligned block holds several rows, each row written by its own pieces).
+// Designs measured on an H100 at a 100 MB object's chunk, chunk 0 lost
+// (the product into a pitched buffer takes 81 us there): pieces at each
+// warp's ends, 113 us; runs of groups a warp with lane 31 carried, 104
+// us; the tails in shared memory with pieces by their lanes, 98 us; with
+// pieces a byte a lane, 94.5 us (blocks of 256; of 128, 97.5 us).
+// Bound: (k + k) L bytes per fragment, the same as the product into a
+// pitched buffer; the staged path moved 4 k L more (k survivors copied
+// in and k rows copied out, each read and written).
 //
 // Bounds on an H100 SXM (3.35 TB/s HBM3): (k + m) * L bytes, each input
 // byte read once and each output byte written once. At a 100 MB
@@ -75,6 +115,7 @@ constexpr int kSmallK = 10;      // input rows of gf256_small, at most
 constexpr int kSmallM = 16;      // output rows of gf256_small, at most
 constexpr int kRows = 8;         // output rows per group, gf256_general
 constexpr int kTableWords = 5;   // T0 (2 words), T1 (2), T2 (1)
+constexpr int kGatherFrags = 32; // fragments per gathered launch
 
 // Mirrors kernel.py::small_plan_words, word for word.
 struct SmallPlan {
@@ -139,15 +180,8 @@ __device__ __forceinline__ uint32_t fsr(uint32_t lo, uint32_t hi, int r) {
   return __funnelshift_r(lo, hi, r);
 }
 
-// Chunk c (columns 16c .. 16c+15) of a row that starts `shift` bytes
-// into the 16-byte block `a`. Columns at or past L come back as
-// whatever the covering blocks hold.
-__device__ __forceinline__ uint4 load_chunk(const uint4* a, int shift,
-                                            long long c, long long L) {
-  const uint4 lo = __ldg(a + c);
-  if (shift == 0) return lo;
-  uint4 hi = make_uint4(0u, 0u, 0u, 0u);
-  if (16 * c + 16 - shift < L) hi = __ldg(a + c + 1);
+// The 16 bytes that start `shift` bytes (0-15) into the 32 bytes lo, hi.
+__device__ __forceinline__ uint4 realign(uint4 lo, uint4 hi, int shift) {
   const int r = (shift & 3) * 8;
   switch (shift >> 2) {
     case 0:
@@ -165,6 +199,18 @@ __device__ __forceinline__ uint4 load_chunk(const uint4* a, int shift,
   }
 }
 
+// Chunk c (columns 16c .. 16c+15) of a row that starts `shift` bytes
+// into the 16-byte block `a`. Columns at or past L come back as
+// whatever the covering blocks hold.
+__device__ __forceinline__ uint4 load_chunk(const uint4* a, int shift,
+                                            long long c, long long L) {
+  const uint4 lo = __ldg(a + c);
+  if (shift == 0) return lo;
+  uint4 hi = make_uint4(0u, 0u, 0u, 0u);
+  if (16 * c + 16 - shift < L) hi = __ldg(a + c + 1);
+  return realign(lo, hi, shift);
+}
+
 __device__ __forceinline__ void store_chunk(uint8_t* p, uint4 v) {
   *reinterpret_cast<uint4*>(p) = v;
 }
@@ -173,6 +219,32 @@ __device__ __forceinline__ const uint4* block_of(const uint8_t* row,
                                                  int* shift) {
   *shift = static_cast<int>(reinterpret_cast<uintptr_t>(row) & 15u);
   return reinterpret_cast<const uint4*>(row - *shift);
+}
+
+// The plan's dense rows over one chunk x[0..K) of every input row.
+template <int K, int D>
+__device__ __forceinline__ void dense_rows(const SmallPlan& P,
+                                           const uint4* x, uint4* acc) {
+#pragma unroll
+  for (int d = 0; d < D; ++d) acc[d] = make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    uint32_t need = 0u;
+#pragma unroll
+    for (int d = 0; d < D; ++d)
+      need |= ((P.kinds[d] >> (2 * j)) & 3u) == 2u;
+    Sel s[4];
+    if (need) selectors4(x[j], s);
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      const uint32_t kind = (P.kinds[d] >> (2 * j)) & 3u;
+      if (kind == 1u) {
+        acc[d] = acc[d] ^ x[j];
+      } else if (kind == 2u) {
+        acc[d] = acc[d] ^ mul4(P.tab[d][j], s);
+      }
+    }
+  }
 }
 
 // ALIGNED: X and ldx are 16-byte aligned (the codec's stacked rows), so
@@ -206,29 +278,168 @@ gf256_small(const __grid_constant__ SmallPlan P,
       for (uint32_t u = P.copies[j]; u; u &= u - 1)
         store_chunk(oc + (__ffs(u) - 1) * ldo, x[j]);
     uint4 acc[D > 0 ? D : 1];
-#pragma unroll
-    for (int d = 0; d < D; ++d) acc[d] = make_uint4(0u, 0u, 0u, 0u);
-#pragma unroll
-    for (int j = 0; j < K; ++j) {
-      uint32_t need = 0u;
-#pragma unroll
-      for (int d = 0; d < D; ++d)
-        need |= ((P.kinds[d] >> (2 * j)) & 3u) == 2u;
-      Sel s[4];
-      if (need) selectors4(x[j], s);
-#pragma unroll
-      for (int d = 0; d < D; ++d) {
-        const uint32_t kind = (P.kinds[d] >> (2 * j)) & 3u;
-        if (kind == 1u) {
-          acc[d] = acc[d] ^ x[j];
-        } else if (kind == 2u) {
-          acc[d] = acc[d] ^ mul4(P.tab[d][j], s);
-        }
-      }
-    }
+    dense_rows<K, D>(P, x, acc);
 #pragma unroll
     for (int d = 0; d < D; ++d)
       store_chunk(oc + P.dense_row[d] * ldo, acc[d]);
+  }
+}
+
+// ---- gathered decode into the framed layout ---------------------------
+
+// One fragment of a gathered decode: its K survivor chunks, each `len`
+// bytes at any alignment, and its framed output, output row i at
+// out + i * len (any alignment: rows follow each other with no pad).
+struct GatherFrag {
+  const uint8_t* in[kSmallK];
+  uint8_t* out;
+  long long len;
+};
+
+// The plan and up to kGatherFrags fragments, by value in one launch.
+struct GatherParams {
+  SmallPlan plan;
+  GatherFrag frag[kGatherFrags];
+};
+static_assert(sizeof(GatherParams) <= 4096, "a kernel parameter of 4 KB");
+
+__device__ __forceinline__ uint32_t word_of(uint4 w, int i) {
+  return i == 0 ? w.x : i == 1 ? w.y : i == 2 ? w.z : w.w;
+}
+
+// Byte i (0-15) of the 16 bytes w.
+__device__ __forceinline__ uint8_t byte_of(uint4 w, int i) {
+  return static_cast<uint8_t>(word_of(w, i >> 2) >> (8 * (i & 3)));
+}
+
+__device__ __forceinline__ uint4 shfl_up4(uint4 v) {
+  return make_uint4(__shfl_up_sync(~0u, v.x, 1), __shfl_up_sync(~0u, v.y, 1),
+                    __shfl_up_sync(~0u, v.z, 1), __shfl_up_sync(~0u, v.w, 1));
+}
+
+__device__ __forceinline__ uint4 shfl4(uint4 v, int src) {
+  return make_uint4(__shfl_sync(~0u, v.x, src), __shfl_sync(~0u, v.y, src),
+                    __shfl_sync(~0u, v.z, src), __shfl_sync(~0u, v.w, src));
+}
+
+// Chunk c of an output row of L bytes that starts at `row` (any
+// alignment), v its 16 bytes (those at or past L are not stored), in a
+// block whose threads hold consecutive chunks. Every lane of the warp
+// calls it. `before`: in lane 0, the same row's chunk c - 1 that lane 31
+// of the warp before left in shared memory. The chunk straddles two
+// aligned blocks when the row is not aligned: the thread stores the first
+// whole, its head after the tail of chunk c - 1 (shuffled up from lane -
+// 1, or `before`). Only the block's first thread, which has no chunk
+// c - 1 (the row's first chunk among them), owns just its own bytes of
+// that block; only the block's last thread, whose chunk c + 1 is in
+// another block, and the row's last chunk (`owns_tail`) own their tail
+// in the next block too. Those pieces are stored a byte a lane, the
+// warp taking its lanes at an edge (`edges`) in turn: lanes 0-15 the
+// head's bytes, lanes 16-31 the tail's. So each output byte is stored
+// once, by one thread, and a warp with no edge (`inner` in every active
+// lane) stores one 16-byte block a lane.
+__device__ __forceinline__ void store_framed(uint8_t* row, uint4 v,
+                                             const uint4* before,
+                                             long long c, long long L,
+                                             int lane, bool first_of_block,
+                                             bool owns_tail, bool inner,
+                                             uint32_t edges) {
+  uint4 prev = shfl_up4(v);
+  if (lane == 0 && !first_of_block) prev = *before;
+  const uintptr_t at = reinterpret_cast<uintptr_t>(row) + 16 * c;
+  const int s = static_cast<int>(at & 15u);
+  uint8_t* blk = reinterpret_cast<uint8_t*>(at - s);
+  const uint4 w = s == 0 ? v : realign(prev, v, 16 - s);
+  if (inner) store_chunk(blk, w);
+  if (edges == 0u) return;           // no lane of the warp at an edge
+  const bool edge = (edges >> lane) & 1u;
+  const int n = static_cast<int>(L - 16 * c < 16 ? L - 16 * c : 16);
+  const int lo = first_of_block ? s : 0;
+  const int hi = s + n < 16 ? s + n : 16;
+  const bool whole = lo == 0 && hi == 16;
+  if (edge && whole) store_chunk(blk, w);
+  const uint4 tv = s == 0 ? v : realign(v, v, 16 - s);
+  const int tail = owns_tail && n > 16 - s ? n - 16 + s : 0;
+  const int span = whole ? tail << 16 : lo | hi << 8 | tail << 16;
+  const unsigned long long b = reinterpret_cast<uintptr_t>(blk);
+  const int i = lane & 15;
+  for (uint32_t e = edges; e; e &= e - 1) {
+    const int src = __ffs(e) - 1;
+    const uint4 we = shfl4(w, src), te = shfl4(tv, src);
+    const int sp = __shfl_sync(~0u, span, src);
+    uint8_t* be = reinterpret_cast<uint8_t*>(__shfl_sync(~0u, b, src));
+    if (lane < 16) {
+      if (i >= (sp & 255) && i < ((sp >> 8) & 255)) be[i] = byte_of(we, i);
+    } else if (i < (sp >> 16)) {
+      be[16 + i] = byte_of(te, i);
+    }
+  }
+}
+
+// A thread per 16-byte column chunk of a fragment (blockIdx.y), as
+// gf256_small: it loads the chunk of every survivor where the slabs hold
+// it, computes every output row's chunk and stores each at that row's
+// place in the framed output (store_framed). A block's threads hold
+// consecutive chunks; lane 31 of each warp leaves its chunks in shared
+// memory for lane 0 of the next (double-buffered, one barrier a pass),
+// so partial stores fall only at the block's two ends.
+template <int K, int D>
+__global__ void __launch_bounds__(kThreadsMax)
+gf256_small_gather(const __grid_constant__ GatherParams G) {
+  __shared__ uint4 tails[2][kThreadsMax / 32][kSmallK + kSmallDense];
+  const SmallPlan& P = G.plan;
+  const GatherFrag& F = G.frag[blockIdx.y];
+  const long long L = F.len;
+  const long long nchunks = (L + 15) >> 4;
+  const int lane = static_cast<int>(threadIdx.x & 31u);
+  const int warp = static_cast<int>(threadIdx.x >> 5);
+  const bool first_of_block = threadIdx.x == 0;
+  const bool last_of_block = threadIdx.x + 1 == blockDim.x;
+  const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
+  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  int buf = 0;
+  for (long long c = static_cast<long long>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+       c - threadIdx.x < nchunks; c += step, buf ^= 1) {
+    const bool active = c < nchunks;
+    const bool owns_tail = last_of_block || 16 * c + 16 >= L;
+    // an inner chunk stores one aligned block a row; the warp's lanes at
+    // an edge (`edges`) store pieces too
+    const bool inner = active && !first_of_block && !owns_tail;
+    const uint32_t edges = __ballot_sync(~0u, active && !inner);
+    uint4 x[K];
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      x[j] = zero;
+      if (active) {
+        int shift;
+        const uint4* a = block_of(F.in[j], &shift);
+        x[j] = load_chunk(a, shift, c, L);
+      }
+    }
+    uint4 acc[D > 0 ? D : 1];
+    dense_rows<K, D>(P, x, acc);
+    uint4* mine = tails[buf][warp];
+    if (lane == 31) {
+#pragma unroll
+      for (int j = 0; j < K; ++j) mine[j] = x[j];
+#pragma unroll
+      for (int d = 0; d < D; ++d) mine[K + d] = acc[d];
+    }
+    __syncthreads();
+    const uint4* before = tails[buf][warp > 0 ? warp - 1 : 0];
+    for (uint32_t z = P.zeros; z; z &= z - 1)
+      store_framed(F.out + (__ffs(z) - 1) * L, zero, &zero, c, L, lane,
+                   first_of_block, owns_tail, inner, edges);
+#pragma unroll
+    for (int j = 0; j < K; ++j)
+      for (uint32_t u = P.copies[j]; u; u &= u - 1)
+        store_framed(F.out + (__ffs(u) - 1) * L, x[j], before + j, c, L,
+                     lane, first_of_block, owns_tail, inner, edges);
+#pragma unroll
+    for (int d = 0; d < D; ++d)
+      store_framed(F.out + P.dense_row[d] * L, acc[d], before + K + d, c,
+                   L, lane, first_of_block, owns_tail, inner, edges);
   }
 }
 
@@ -320,6 +531,19 @@ cudaError_t launch_small_k(int dense, const SmallPlan& plan,
                             stream);
 }
 
+template <int K>
+cudaError_t launch_gather(int dense, const GatherParams& params, int n,
+                          int threads, int blocks, cudaStream_t stream) {
+  const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(n));
+  if (dense == 0)
+    gf256_small_gather<K, 0><<<grid, threads, 0, stream>>>(params);
+  else if (dense == 1)
+    gf256_small_gather<K, 1><<<grid, threads, 0, stream>>>(params);
+  else
+    gf256_small_gather<K, 2><<<grid, threads, 0, stream>>>(params);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // X: k rows of L bytes, row stride ldx bytes, any alignment. out: m rows
@@ -373,3 +597,41 @@ extern "C" int gf256_matmul_planned(const void* small_plan, const void* coef,
   return static_cast<int>(cudaGetLastError());
 }
 
+
+// The gathered decode of `n` fragments (1 <= n <= kGatherFrags) in one
+// launch of gf256_small_gather. small_plan: as for gf256_matmul_planned
+// (k in {4, 10}, `dense` <= 2 dense rows, at most 16 output rows).
+// in: n * k device pointers, fragment f's survivor chunks at
+// in[f * k .. f * k + k), each len[f] bytes at any alignment. out: n
+// device pointers, fragment f's output rows at out[f] + i * len[f].
+// threads (a multiple of 32) x blocks is the grid over the longest
+// fragment's 16-byte column chunks (kernel.py::launch_shape), one grid
+// row per fragment.
+// Launches on `stream`, does not synchronise, allocates nothing. Returns
+// cudaGetLastError() after the launch, or cudaErrorInvalidValue for
+// operands it does not take (0 = success).
+extern "C" int gf256_gather_planned(const void* small_plan,
+                                    const void* const* in,
+                                    void* const* out, const long long* len,
+                                    int n, int k, int dense, int threads,
+                                    int blocks, void* stream) {
+  if (small_plan == nullptr || n <= 0 || n > kGatherFrags ||
+      (k != 4 && k != kSmallK) || dense < 0 || dense > kSmallDense ||
+      threads <= 0 || threads > kThreadsMax || threads % 32 != 0 ||
+      blocks <= 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  GatherParams params;
+  std::memset(&params, 0, sizeof(params));
+  std::memcpy(&params.plan, small_plan, sizeof(params.plan));
+  for (int f = 0; f < n; ++f) {
+    if (len[f] < 0) return static_cast<int>(cudaErrorInvalidValue);
+    for (int j = 0; j < k; ++j)
+      params.frag[f].in[j] = static_cast<const uint8_t*>(in[f * k + j]);
+    params.frag[f].out = static_cast<uint8_t*>(out[f]);
+    params.frag[f].len = len[f];
+  }
+  auto s = static_cast<cudaStream_t>(stream);
+  if (k == 4)
+    return launch_gather<4>(dense, params, n, threads, blocks, s);
+  return launch_gather<kSmallK>(dense, params, n, threads, blocks, s);
+}

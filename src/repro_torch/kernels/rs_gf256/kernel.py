@@ -1,13 +1,19 @@
 """Hopper CUDA kernels: GF(256) matrix multiply (RS coding).
 
 Computes OUT = G ∘ X over GF(2^8): OUT[i, :] = XOR_j gfmul(G[i,j], X[j, :]).
-Two kernels, each described at the top of its source:
+Three kernels, each described at the top of its source:
 
 - `gf256_matmul_cuda` (`csrc/gf256_matmul.cu`), the codec's kernel;
   replaces the JAX package's `_rs_bitsliced_kernel`: a row plan of G
   (`row_plan`: zero, unit and dense rows) and split product tables
   looked up by byte permutes (`split_tables`), one 16-byte column chunk
   of every input row per thread (`launch_shape`);
+- `gf256_gather_framed_cuda` (the same source, `gf256_small_gather`),
+  the codec's degraded decode on the small route: each fragment's
+  survivor chunks read where they lie and its rows written straight
+  into its framed buffer, up to `GATHER_FRAGS` fragments a launch, the
+  plan and the pointers by value; it replaces no TPU kernel (the JAX
+  package stacks and unframes in host arrays);
 - `gf256_matmul_ladder_cuda` (`csrc/gf256_ladder.cu`), the xtime-ladder
   A/B baseline; replaces `_rs_ladder_kernel`: every product formed at
   run time by xtimes of four packed bytes per 32-bit word, the running
@@ -20,8 +26,8 @@ with a plain C entry point (built at first use by `kernels/_build.py`
 under `build/repro_torch/`, keyed by a hash of the source) and called
 through `ctypes` on PyTorch's current stream. Importing this module builds
 nothing; a failed build raises — there is no fallback to the plain
-version. `launches` and `ladder_launches` count each kernel's launches
-in this process.
+version. `launches`, `gather_launches` and `ladder_launches` count each
+kernel's launches in this process.
 
 Each kernel's coefficient operand — the codec kernel's plan (by value in
 the launch for the store's shapes, else a device table), the ladder's
@@ -55,8 +61,12 @@ SMALL_MAX_DENSE = 2
 SMALL_PLAN_WORDS = 115           # sizeof(SmallPlan) / 4
 THREADS = 128                    # threads per block, at most
 MAX_BLOCKS = 2 ** 31 - 1         # grid cap; threads stride beyond it
+GATHER_FRAGS = 32                # fragments per gathered launch (.cu's
+                                 # kGatherFrags)
+GATHER_THREADS = 256             # threads per gathered block, at most
 
 launches = 0                     # codec kernel launches
+gather_launches = 0              # gathered, framed decode launches
 ladder_launches = 0              # ladder kernel launches
 _lock = threading.Lock()         # guards the libraries, counts, the cache
 _libs: dict = {}                 # source -> loaded library
@@ -72,19 +82,23 @@ _ARGTYPES = {
                              _I, _P],
     # (coefficients, X, ldx, out, ldo, m, k, L, threads, blocks, stream)
     "gf256_matmul_ladder": [_P, _P, _LL, _P, _LL, _I, _I, _LL, _I, _I, _P],
+    # (small plan, inputs, outputs, lengths, n, k, dense, threads, blocks,
+    # stream)
+    "gf256_gather_planned": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
 }
 
 
 def _entry(source: Path, name: str):
     """The C entry point `name` of `source`'s library, built and loaded
-    at first use."""
+    at first use (every entry point of `_ARGTYPES` it has typed then)."""
     with _lock:
         lib = _libs.get(source)
         if lib is None:
             lib = ctypes.CDLL(str(_build.build(source)))
-            fn = getattr(lib, name)
-            fn.argtypes = _ARGTYPES[name]
-            fn.restype = ctypes.c_int
+            for entry, argtypes in _ARGTYPES.items():
+                if hasattr(lib, entry):
+                    getattr(lib, entry).argtypes = argtypes
+                    getattr(lib, entry).restype = ctypes.c_int
             _libs[source] = lib
         return getattr(lib, name)
 
@@ -214,17 +228,19 @@ def expand_plan(G, device) -> Operand:
     return Operand(plan, "general", None, coef)
 
 
-def launch_shape(L: int, sms: int) -> Tuple[int, int]:
+def launch_shape(L: int, sms: int, most: int = THREADS
+                 ) -> Tuple[int, int]:
     """(threads, blocks) over the ceil(L/16) column chunks, one chunk a
-    thread: THREADS a block where the chunks give every SM two such
-    blocks, fewer (a multiple of 32) where they do not, so a small
+    thread: `most` threads a block where the chunks give every SM two
+    such blocks, fewer (a multiple of 32) where they do not, so a small
     product still spreads over the card. (Measured on an H100 at a 100 MB
     object's chunk: one chunk a thread beat grids capped at 4-16 blocks
     per SM with the threads striding, and 128 threads beat 256 at the
-    decode and the dense product.)"""
+    decode and the dense product; the gathered decode takes 256, since
+    its partial stores fall at a block's ends.)"""
     chunks = -(-L // 16)
-    threads = THREADS
-    if chunks < 2 * sms * THREADS:
+    threads = most
+    if chunks < 2 * sms * most:
         threads = max(32, 32 * -(-chunks // (2 * sms * 32)))
     return threads, max(1, min(-(-chunks // threads), MAX_BLOCKS))
 
@@ -291,6 +307,84 @@ def gf256_matmul_cuda(G, X: torch.Tensor) -> torch.Tensor:
     with _lock:
         launches += 1
     return out
+
+
+def gather_tables(chunks, outs, m: int, k: int, device
+                  ) -> Tuple[ctypes.Array, ctypes.Array, ctypes.Array]:
+    """The `gf256_gather_planned` tables of one launch: each fragment's k
+    survivor pointers (fragment after fragment), its output pointer and
+    its chunk length L. Raises on a tensor that is not a flat contiguous
+    uint8 tensor on `device`, on a fragment whose chunks differ in
+    length or number, and on an output that is not m * L bytes."""
+    n = len(chunks)
+    ins = (ctypes.c_void_p * (n * k))()
+    out_ptrs = (ctypes.c_void_p * n)()
+    lens = (ctypes.c_longlong * n)()
+    for f, (rows, out) in enumerate(zip(chunks, outs)):
+        if len(rows) != k:
+            raise ValueError(f"fragment {f} has {len(rows)} chunks, G "
+                             f"takes {k}")
+        L = _flat_u8(rows[0], device).numel()
+        for j, row in enumerate(rows):
+            if _flat_u8(row, device).numel() != L:
+                raise ValueError(f"fragment {f}: chunk {j} holds "
+                                 f"{row.numel()} bytes, chunk 0 {L}")
+            ins[f * k + j] = row.data_ptr()
+        if _flat_u8(out, device).numel() != m * L:
+            raise ValueError(f"fragment {f}: output of {out.numel()} "
+                             f"bytes for {m} rows of {L}")
+        out_ptrs[f] = out.data_ptr()
+        lens[f] = L
+    return ins, out_ptrs, lens
+
+
+def _flat_u8(t, device) -> torch.Tensor:
+    """`t` if it is a plain flat contiguous uint8 tensor on `device`."""
+    if type(t) is not torch.Tensor or t.dtype != torch.uint8 or \
+            t.dim() != 1 or t.device != device or not t.is_contiguous():
+        raise ValueError(f"need flat contiguous uint8 tensors on {device}, "
+                         f"got {type(t).__name__} "
+                         f"{getattr(t, 'dtype', None)} "
+                         f"{tuple(getattr(t, 'shape', ()))} on "
+                         f"{getattr(t, 'device', None)}")
+    return t
+
+
+def gf256_gather_framed_cuda(G, chunks, outs) -> None:
+    """Launch the gathered, framed decode (`gf256_small_gather`): for
+    each fragment f, the product of G ((m, k) uint8 on the small route,
+    `route`) and its k survivor chunks `chunks[f]` (flat uint8 CUDA
+    tensors of one length L, any alignment, read where they lie) written
+    into `outs[f]` (flat uint8, m * L bytes, any alignment) row after
+    row: output row i at byte i * L. ceil(n / GATHER_FRAGS) launches for
+    n fragments."""
+    global gather_launches
+    if len(chunks) != len(outs):
+        raise ValueError(f"{len(chunks)} fragments, {len(outs)} outputs")
+    if not outs:
+        return
+    device = outs[0].device
+    if device.type != "cuda":
+        raise ValueError("gf256_gather_framed_cuda needs CUDA tensors")
+    m, k = np.shape(G)
+    op = plan_for(G, device)
+    if op.route != "small":
+        raise ValueError(f"G ({m}, {k}) with {op.plan} is not on the "
+                         f"small route: gf256_matmul_cuda takes it")
+    fn = _entry(SOURCE, "gf256_gather_planned")
+    sms = _build.sm_count(device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        for start in range(0, len(outs), GATHER_FRAGS):
+            part = slice(start, start + GATHER_FRAGS)
+            ins, out_ptrs, lens = gather_tables(chunks[part], outs[part],
+                                                m, k, device)
+            threads, blocks = launch_shape(max(lens), sms, GATHER_THREADS)
+            rc = fn(op.small.ctypes.data, ins, out_ptrs, lens, len(lens),
+                    k, len(op.plan.dense), threads, blocks, stream)
+            _raise_on("gf256_gather_planned", rc)
+            with _lock:
+                gather_launches += 1
 
 
 def gf256_matmul_ladder_cuda(G, X: torch.Tensor) -> torch.Tensor:

@@ -150,6 +150,29 @@ def gf256_matmul_ref(G, X: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def gf256_gather_framed_ref(G, chunks, outs, matmul=None) -> None:
+    """Plain PyTorch version of the gathered, framed decode: for each
+    fragment f, its k survivor chunks `chunks[f]` (flat uint8 tensors of
+    one length L) staged into one (k, L) tensor, multiplied by G, and the
+    (m, L) product written row after row into `outs[f]` (flat uint8,
+    m * L bytes): output row i at byte i * L. The product is `matmul`
+    (G, X), `gf256_matmul_ref` unless the caller names its own (the
+    codec names its `gf256_matmul`, which takes this plain product on
+    CPU tensors)."""
+    matmul = gf256_matmul_ref if matmul is None else matmul
+    if len(chunks) != len(outs):
+        raise ValueError(f"{len(chunks)} fragments, {len(outs)} outputs")
+    m, k = np.shape(G)
+    for f, (rows, out) in enumerate(zip(chunks, outs)):
+        L = rows[0].numel() if rows else 0
+        if len(rows) != k or any(r.numel() != L for r in rows) or \
+                out.numel() != m * L:
+            raise ValueError(f"fragment {f}: need {k} chunks of one length "
+                             f"and an output of {m} rows of it")
+        X = torch.stack([r.reshape(-1) for r in rows])
+        out.view(m, L).copy_(matmul(G, X))
+
+
 def gf256_matmul_ladder_ref(G, X: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch xtime ladder, the ladder kernel's plain version: the
     same (m,k) @ (k,L) product on X's device, one byte per int32 lane.

@@ -150,3 +150,54 @@ def test_cuda_codec_refused_without_a_card():
         pytest.skip("the machine has a card: nothing to refuse")
     with pytest.raises(RuntimeError, match="CUDA"):
         RSCodec(ECConfig(4, 2))
+
+
+GATHER_CLENS = [1, 3, 15, 16, 17, 4097, 1_048_577]
+
+
+def _offset_chunks(chunks, rng):
+    """Each chunk as a tensor view at byte offset 0-15 of its own
+    storage."""
+    out = {}
+    for i, c in chunks.items():
+        off = int(rng.integers(0, 16))
+        buf = torch.empty(off + len(c), dtype=torch.uint8)
+        buf[off:] = torch.frombuffer(bytearray(c), dtype=torch.uint8)
+        out[i] = buf[off:]
+    return out
+
+
+@pytest.mark.parametrize("k,p", [(10, 2), (4, 2)])
+@pytest.mark.parametrize("clen", GATHER_CLENS)
+def test_gathered_decode_matches_staged_and_reference(k, p, clen,
+                                                      monkeypatch):
+    """The codec's gathered decode (the plain version on the CPU) against
+    the staged path it replaces and the JAX package's RSCodec: every
+    survivor set with 1 and 2 chunks lost, chunk lengths around a 16-byte
+    chunk, survivors at byte offsets 0-15 of their storage, and batches
+    of 4 and of more fragments than one launch's table."""
+    from repro_torch.core import ec
+    from repro_torch.kernels.rs_gf256.kernel import GATHER_FRAGS
+    rng = np.random.default_rng(clen + k)
+    ours, ref = pair(k, p)
+    n = k + p
+    payload = rng.bytes(max(0, k * clen - 4))
+    chunks = ref.encode(payload)
+    assert len(chunks[0]) == clen
+    sets = [s for lost in (1, 2) for s in combinations(range(n), n - lost)]
+    if clen > 100_000:                   # chunk 0, and chunks 0-1, lost
+        sets = [tuple(range(1, n)), tuple(range(2, n))]
+    cmaps = [_offset_chunks({i: chunks[i] for i in s}, rng) for s in sets]
+    got = ours.decode_many(cmaps)
+    assert got == [payload] * len(sets)
+    assert ref.decode_many([{i: chunks[i] for i in s} for s in sets]) == got
+    assert ours.decode_many(cmaps, as_arrays=True)[0].numpy().tobytes() \
+        == payload
+    monkeypatch.setattr(ec, "gathers", lambda G: False)   # the staged path
+    assert ours.decode_many(cmaps) == got
+    monkeypatch.undo()
+    if clen < 5000:                      # one survivor group, 4 and 40
+        for m in (4, GATHER_FRAGS + 8):
+            batch = [cmaps[-1]] * m
+            assert ours.decode_many(batch) == [payload] * m
+    assert ours.staged_decodes == 0      # a CPU codec counts none

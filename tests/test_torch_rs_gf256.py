@@ -4,9 +4,11 @@ PyTorch products — the codec's and the xtime ladder's — bit-identical
 (tolerance 0) to `gf_matmul_np` and to the Pallas kernels in interpret
 mode; the `backend=` dispatch of `gf256_matmul`; numpy emulations of
 the kernels' word arithmetic (the codec's byte permutes, the ladder's
-packed xtimes, the funnel-shift realignment). The CUDA kernels are held
-to their plain versions and to each other on the card (`-m cuda`;
-skipped without one).
+packed xtimes, the funnel-shift realignment) and of the gathered
+decode's framed stores; the plain gathered decode against the staged
+product. The CUDA kernels are held to their plain versions and to each
+other on the card (`-m cuda`; skipped without one), the gathered one
+also through the codec and a degraded GET of a CUDA store.
 
 The JAX package is imported inside the parity tests only, so the CUDA
 case runs on a machine that has no JAX."""
@@ -297,6 +299,19 @@ def test_launch_shape_spreads_small_products(L, sms, want):
     assert threads * (blocks - 1) < chunks       # and no idle block
 
 
+@pytest.mark.parametrize("L,sms,want", [
+    (1, 132, (32, 1)),
+    (3_160_001, 132, (256, 772)),        # the mean GET's chunk
+    (10_485_761, 132, (256, 2561)),      # a 100 MB object's
+])
+def test_gathered_launch_takes_blocks_of_256(L, sms, want):
+    """The gathered decode's grid: one chunk a thread, blocks of up to
+    GATHER_THREADS, since its partial stores fall at a block's ends."""
+    threads, blocks = tkernel.launch_shape(L, sms, tkernel.GATHER_THREADS)
+    assert (threads, blocks) == want
+    assert threads * blocks >= -(-L // 16) > threads * (blocks - 1)
+
+
 def test_dispatch_refuses_what_it_cannot_run():
     G, X = _operands(2, 3, 10, 0)
     with pytest.raises(TypeError):
@@ -461,6 +476,12 @@ def _load_chunk(blocks, shift, c, L):
     if shift == 0:
         return lo
     hi = blocks[c + 1] if 16 * c + 16 - shift < L else np.zeros(4, np.uint32)
+    return _realign(lo, hi, shift)
+
+
+def _realign(lo, hi, shift):
+    """The kernels' `realign` in numpy: the 16 bytes that start `shift`
+    bytes into the 32 bytes lo, hi ((4,) uint32 each), by funnel shifts."""
     w = np.concatenate([lo, hi]).astype(np.uint64)
     r = np.uint64((shift & 3) * 8)
     q = shift >> 2
@@ -558,3 +579,321 @@ def test_kernel_sweeps_plans_offsets_and_lengths_on_card(cuda_device):
                         assert torch.equal(part, got[:, o:]), (G.shape, o)
                         calls += 1
     assert tkernel.launches - before == calls
+
+
+# ---- the gathered, framed decode -----------------------------------------
+
+def _decode_matrices(k, p, lost_counts=(1, 2)):
+    """Every decode matrix of RS(k+p) with 1 or 2 chunks lost that is not
+    the identity (a data chunk among the lost): (lost, G)."""
+    from repro_torch.core.ec import ECConfig, RSCodec
+    codec = RSCodec(ECConfig(k, p), device="cpu")
+    out = []
+    for n in lost_counts:
+        for lost in combinations(range(k + p), n):
+            idx = tuple(i for i in range(k + p) if i not in lost)[:k]
+            if idx != tuple(range(k)):
+                out.append((lost, codec._decode_matrix(idx)))
+    return out
+
+
+GATHER_MATRICES = [(k, lost, G) for k, p in [(10, 2), (4, 2)]
+                   for lost, G in _decode_matrices(k, p)]
+GATHER_L = [1, 3, 15, 16, 17, 4097, 1_048_577]
+
+
+def _gather_case(G, L, n, rng, device, offsets=None):
+    """n fragments for G: each fragment's k chunks at byte offsets 0-15
+    of their own storage (`offsets[j]`, else drawn), and framed outputs
+    of k * L bytes at every output alignment in turn, inside buffers
+    filled with a sentinel. Returns (chunks, outs, buffers, spans)."""
+    m, k = G.shape
+    chunks, outs, bufs, spans = [], [], [], []
+    for f in range(n):
+        rows = []
+        for j in range(k):
+            off = int(rng.integers(0, 16)) if offsets is None else offsets[j]
+            base = torch.from_numpy(
+                rng.integers(0, 256, off + L, dtype=np.uint8)).to(device)
+            rows.append(base[off:])
+        o = f % 16
+        buf = torch.full((o + m * L + 32,), 0xA5, dtype=torch.uint8,
+                         device=device)
+        chunks.append(rows)
+        outs.append(buf[o:o + m * L])
+        bufs.append(buf)
+        spans.append((o, o + m * L))
+    return chunks, outs, bufs, spans
+
+
+@pytest.mark.parametrize("L", GATHER_L)
+def test_plain_gather_equals_staged_product_for_every_survivor_set(L):
+    """The plain gathered decode against the staged path it replaces (a
+    stacked survivor buffer, `gf256_matmul_ref`, rows copied into the
+    framed buffer) and against the JAX package's `gf_matmul_np`: every
+    RS(10+2) and RS(4+2) survivor set with 1 or 2 chunks lost, chunks
+    at byte offsets 0-15 of their storage, batches of 1 (and of 4 for
+    every eighth set)."""
+    from repro.kernels.rs_gf256.ref import gf_matmul_np
+    rng = np.random.default_rng(L)
+    mats = GATHER_MATRICES if L < 1_000_000 else \
+        [GATHER_MATRICES[0], GATHER_MATRICES[12]]   # RS(10+2), 1 and 2 lost
+    for i, (k, lost, G) in enumerate(mats):
+        for n in ((1, 4) if L < 5000 and i % 8 == 0 else (1,)):
+            chunks, outs, bufs, spans = _gather_case(G, L, n, rng, "cpu")
+            tref.gf256_gather_framed_ref(G, chunks, outs)
+            for rows, out, buf, (a, b) in zip(chunks, outs, bufs, spans):
+                X = torch.stack(list(rows))
+                staged = tref.gf256_matmul_ref(G, X)
+                assert torch.equal(out.view(k, L), staged), (k, lost, L)
+                if L < 5000:
+                    assert np.array_equal(out.view(k, L).numpy(),
+                                          gf_matmul_np(G, X.numpy()))
+                assert bool((buf[:a] == 0xA5).all()) and \
+                    bool((buf[b:] == 0xA5).all()), (k, lost, L)
+
+
+def test_plain_gather_takes_more_fragments_than_one_launch():
+    """A batch past one launch's table (`GATHER_FRAGS`) through the
+    dispatch: every fragment its own length and offsets."""
+    rng = np.random.default_rng(77)
+    k, lost, G = GATHER_MATRICES[0]
+    n = tkernel.GATHER_FRAGS + 9
+    chunks, outs = [], []
+    for f in range(n):
+        L = int(rng.integers(1, 300))
+        c, o, _, _ = _gather_case(G, L, 1, rng, "cpu")
+        chunks += c
+        outs += o
+    tops.gf256_gather_framed(G, chunks, outs)
+    for rows, out in zip(chunks, outs):
+        L = rows[0].numel()
+        want = tref.gf_matmul_np(G, torch.stack(list(rows)).numpy())
+        assert np.array_equal(out.view(k, L).numpy(), want)
+
+
+def test_gather_refuses_what_it_cannot_run():
+    k, lost, G = GATHER_MATRICES[0]
+    rows = [torch.zeros(8, dtype=torch.uint8) for _ in range(k)]
+    out = torch.zeros(k * 8, dtype=torch.uint8)
+    assert tops.gathers(G) and not tops.gathers(np.eye(3, dtype=np.uint8))
+    assert not tops.gathers(np.full((3, 10), 9, np.uint8))  # 3 dense rows
+    with pytest.raises(ValueError):                # one chunk too short
+        tops.gf256_gather_framed(G, [rows[:-1] + [rows[0][:7]]], [out])
+    with pytest.raises(ValueError):                # output not k * L
+        tops.gf256_gather_framed(G, [rows], [out[:-1]])
+    with pytest.raises(ValueError):                # fragments != outputs
+        tops.gf256_gather_framed(G, [rows, rows], [out])
+    with pytest.raises(ValueError):                # a CUDA-less kernel call
+        tkernel.gf256_gather_framed_cuda(G, [rows], [out])
+    tops.gf256_gather_framed(G, [], [])            # nothing to do
+
+
+def test_gather_tables_hold_pointers_and_lengths():
+    """The launch's tables: k pointers a fragment in order, the outputs,
+    the lengths; a strided, wrong-type or wrong-device tensor raises."""
+    k, lost, G = GATHER_MATRICES[0]
+    base = torch.zeros(4096, dtype=torch.uint8)
+    chunks = [[base[f * 400 + 3 * j:f * 400 + 3 * j + 5] for j in range(k)]
+              for f in range(3)]
+    outs = [base[2000 + 64 * f:2000 + 64 * f + 5 * k] for f in range(3)]
+    ins, out_ptrs, lens = tkernel.gather_tables(chunks, outs, k, k,
+                                                torch.device("cpu"))
+    assert list(ins) == [t.data_ptr() for rows in chunks for t in rows]
+    assert list(out_ptrs) == [t.data_ptr() for t in outs]
+    assert list(lens) == [5, 5, 5]
+    for bad in (base[:10:2], base[:5].view(torch.int8), base[:10].view(2, 5)):
+        with pytest.raises(ValueError):
+            tkernel.gather_tables([[bad] * k], [outs[0]], k, k,
+                                  torch.device("cpu"))
+
+
+def _store_bytes(mem, count, at, w, lo, hi):
+    """Bytes [lo, hi) of the 16 bytes w stored at `at` + lo on."""
+    mem[at + lo:at + hi] = w[lo:hi]
+    count[at + lo:at + hi] += 1
+
+
+def _gather_stores(base, rows, L, threads):
+    """The kernel's stores for one fragment, in numpy: `rows` the (m, L)
+    output, written framed at byte `base` of a buffer; every thread as
+    `gf256_small_gather` and `store_framed` run it, a block of `threads`
+    holding consecutive chunks, lane 0 of each warp after the first given
+    chunk c - 1 by the warp before. Returns (memory, stores per byte)."""
+    m = rows.shape[0]
+    nchunks = -(-L // 16)
+    size = base + m * L + 64
+    mem = np.full(size, 0xA5, np.uint8)
+    count = np.zeros(size, np.int64)
+    padded = np.full((m, 16 * nchunks + 16), 0xEE, np.uint8)
+    padded[:, :L] = rows
+
+    def words(b):
+        return np.ascontiguousarray(b).view("<u4")
+
+    def realign(lo, hi, shift):
+        return _realign(words(lo), words(hi), shift).view(np.uint8)
+
+    for r in range(m):
+        row = base + r * L
+        for c in range(nchunks):
+            t = c % threads
+            first_of_block = t == 0
+            owns_tail = t == threads - 1 or 16 * c + 16 >= L
+            v = padded[r, 16 * c:16 * c + 16]
+            prev = v if first_of_block else padded[r, 16 * c - 16:16 * c]
+            at = row + 16 * c
+            s = at % 16
+            blk = at - s
+            assert blk % 16 == 0
+            w = v if s == 0 else realign(prev, v, 16 - s)
+            n = min(16, L - 16 * c)
+            lo = s if first_of_block else 0
+            hi = min(16, s + n)
+            tail = n - 16 + s if owns_tail and n > 16 - s else 0
+            if lo == 0 and hi == 16:             # one aligned 16-byte store
+                _store_bytes(mem, count, blk, w, 0, 16)
+            else:                                # a byte a lane
+                _store_bytes(mem, count, blk, w, lo, hi)
+            if tail:
+                tv = v if s == 0 else realign(v, v, 16 - s)
+                _store_bytes(mem, count, blk + 16, tv, 0, tail)
+    return mem, count
+
+
+@pytest.mark.parametrize("L", list(range(1, 34)) + [255, 511, 512, 513, 527,
+                                                    1000, 1537, 4097])
+def test_framed_stores_write_every_byte_once(L):
+    """`store_framed`'s plan in numpy, for output rows at every alignment
+    (the codec's framed buffer begins at 12 mod 16) and blocks of 32, 64
+    and 256 threads: the framed bytes come out right, each stored by
+    exactly one store (an aligned 16-byte block, or a piece's byte), and
+    no byte outside them is touched,
+    whatever the row length (rows shorter than a block, rows over several
+    blocks, a block cut short by the row's end)."""
+    rng = np.random.default_rng(L)
+    m = 10 if L in (17, 513, 4097) else 3
+    rows = rng.integers(0, 256, (m, L), dtype=np.uint8)
+    for threads in (32, 64, 256):
+        for base in range(16, 32):
+            mem, count = _gather_stores(base, rows, L, threads)
+            span = slice(base, base + m * L)
+            assert np.array_equal(mem[span], rows.reshape(-1)), (L, base)
+            assert (count[span] == 1).all(), (L, threads, base)
+            assert not count[:base].any() and not count[base + m * L:].any()
+
+
+@pytest.mark.cuda
+def test_gather_kernel_matches_plain_on_card(cuda_device):
+    """The gathered kernel against the plain version bit for bit: every
+    RS(10+2) and RS(4+2) survivor set with 1 or 2 chunks lost, the
+    lengths around a 16-byte chunk and past a warp, chunks at byte
+    offsets 0-15 of their storage, outputs at every alignment with the
+    bytes around them untouched, batches of 1 (and, for every eighth set,
+    of 4 and past one launch's table); ceil(n / GATHER_FRAGS) launches a
+    call."""
+    rng = np.random.default_rng(12)
+    before, before_mm = tkernel.gather_launches, tkernel.launches
+    launches = 0
+    for L in GATHER_L:
+        mats = GATHER_MATRICES if L < 1_000_000 else \
+            [GATHER_MATRICES[0], GATHER_MATRICES[12]]
+        for i, (k, lost, G) in enumerate(mats):
+            ns = (1,) if i % 8 else (1, 4, tkernel.GATHER_FRAGS + 3) \
+                if L <= 17 else (1, 4) if L < 5000 else (1,)
+            for n in ns:
+                chunks, outs, bufs, spans = _gather_case(G, L, n, rng,
+                                                         cuda_device)
+                want = [b.clone() for b in bufs]
+                wouts = [w[a:b] for w, (a, b) in zip(want, spans)]
+                tops.gf256_gather_framed(G, chunks, outs)
+                tref.gf256_gather_framed_ref(G, chunks, wouts)
+                torch.cuda.synchronize()
+                for got, w in zip(bufs, want):
+                    assert torch.equal(got, w), (k, lost, L, n)
+                launches += -(-n // tkernel.GATHER_FRAGS)
+    assert tkernel.gather_launches - before == launches
+    assert tkernel.launches == before_mm
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lost", [(0,), (0, 1)])
+def test_gather_kernel_at_the_store_layout_on_card(cuda_device, lost):
+    """A 100 MB object's fragment (L 10,485,761) decoded into the codec's
+    framed buffer from the encode's chunks: the same bytes as the plain
+    version, and the object read back."""
+    from repro_torch.core import ec
+    codec = ec.RSCodec(ec.ECConfig(10, 2), device=cuda_device)
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(3)
+    payload = torch.randint(0, 256, (100 * 2 ** 20,), dtype=torch.uint8,
+                            device=cuda_device, generator=gen)
+    chunks = codec.encode_many([payload], as_arrays=True)[0]
+    idx = tuple(i for i in range(12) if i not in lost)[:10]
+    G = codec._decode_matrix(idx)
+    L = chunks[0].numel()
+    assert L == 10_485_761
+    rows = [chunks[i] for i in idx]
+    got = ec._framed(10 * L, cuda_device)
+    want = ec._framed(10 * L, cuda_device)
+    before = tkernel.gather_launches
+    tops.gf256_gather_framed(G, [rows], [got])
+    tref.gf256_gather_framed_ref(G, [rows], [want])
+    torch.cuda.synchronize()
+    assert tkernel.gather_launches == before + 1
+    assert got.data_ptr() % 16 == 12
+    assert torch.equal(got, want)
+    assert torch.equal(codec.decode_many([{i: chunks[i] for i in idx}],
+                                         as_arrays=True)[0], payload)
+
+
+@pytest.mark.cuda
+def test_degraded_decode_is_one_gather_launch_per_group_on_card(cuda_device):
+    """A CUDA codec's decode: one gathered launch per survivor group
+    (fragments of several lengths in one launch), `launches` unchanged and
+    nothing staged; the identity path launches nothing; a matrix off the
+    small route (RS(3+2)) stages and is counted."""
+    from repro_torch.core import ec
+    rng = np.random.default_rng(4)
+    codec = ec.RSCodec(ec.ECConfig(10, 2), device=cuda_device)
+    payloads = [rng.bytes(n) for n in (1, 17, 4097, 1_000_003, 33)]
+    enc = codec.encode_many(payloads, as_arrays=True)
+    one = [{i: c for i, c in enumerate(cs) if i != 0} for cs in enc]
+    two = [{i: c for i, c in enumerate(cs) if i not in (3, 7)} for cs in enc]
+    ident = [{i: c for i, c in enumerate(cs) if i < 10} for cs in enc]
+    g0, m0 = tkernel.gather_launches, tkernel.launches
+    got = codec.decode_many(one + two + ident)
+    assert got == payloads * 3
+    assert tkernel.gather_launches - g0 == 2 and tkernel.launches == m0
+    assert codec.staged_decodes == 0
+    small = ec.RSCodec(ec.ECConfig(3, 2), device=cuda_device)
+    cs = small.encode(b"staged" * 99)
+    m0 = tkernel.launches
+    assert small.decode({i: cs[i] for i in (1, 2, 4)}) == b"staged" * 99
+    assert small.staged_decodes == 1 and tkernel.launches == m0 + 1
+
+
+@pytest.mark.cuda
+def test_degraded_get_on_cuda_store_gathers_on_card(cuda_device, tmp_path):
+    """A degraded `get_many_arrays` on a CUDA store: the objects' bytes
+    through the gathered decode, `staged_decodes` 0 in `get_pipeline`."""
+    from repro_torch.core import InfiniStore, StoreConfig
+    st = InfiniStore(StoreConfig(enable_recovery=False,
+                                 spill_dir=str(tmp_path / "spill")))
+    try:
+        gen = torch.Generator(device=cuda_device)
+        gen.manual_seed(5)
+        objs = {f"o{i}": torch.randint(0, 256, (n,), dtype=torch.uint8,
+                                       device=cuda_device, generator=gen)
+                for i, n in enumerate((3_000_001, 20_000_000, 17))}
+        st.put_many(objs)
+        assert st.flush_writeback(timeout=120.0)
+        st.inject_failure(st.chunk_map["o1|1/f0#0"])
+        g0 = tkernel.gather_launches
+        got = st.get_many_arrays(list(objs))
+        for key, want in objs.items():
+            assert torch.equal(got[key], want), key
+        assert tkernel.gather_launches > g0
+        assert st.snapshot_metadata()["get_pipeline"]["staged_decodes"] == 0
+    finally:
+        st.close()
