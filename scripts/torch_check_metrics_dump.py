@@ -11,7 +11,9 @@ an enabled ObsPlane, dumps both export formats, then asserts:
    a site dropped from the export is invisible to a scraper even if the
    store still records it;
 3. the JSON dump loads and carries the same histogram sites plus the
-   counters block;
+   counters block; the drive's reclaimed functions were restored, so
+   `recovery.session_us` holds a sample per recovery and the counters
+   count the chunks restored;
 4. `ISTORE_METRICS_DUMP` names the same registry (the atexit hook path
    is exercised by running a child interpreter with the env var set,
    its store on the same device).
@@ -59,7 +61,7 @@ def _drive(plane: ObsPlane, device: str) -> InfiniStore:
     for i in range(6):
         st.put(f"k{i}", rng.bytes(32_000))
     assert st.flush_writeback(timeout=600.0)
-    for fid in list(st.sms.slabs):               # force the COS path
+    for fid in list(st.sms.slabs):   # force the COS path and recovery
         st.inject_failure(fid)
     for i in range(6):
         assert st.get(f"k{i}") is not None
@@ -89,6 +91,12 @@ def main(argv=None) -> None:
         jdump = json.load(open(json_path))
         assert set(jdump["histograms"]) == set(HISTOGRAM_SITES)
         assert jdump["counters"], "stats counters missing from JSON dump"
+        sessions = (jdump["counters"]["recovery_local"]
+                    + jdump["counters"]["recovery_parallel"])
+        assert sessions >= 1 and jdump["counters"]["recovery_chunks"] > 0, \
+            "the reclaimed functions were not restored"
+        assert jdump["histograms"]["recovery.session_us"]["count"] == \
+            sessions, "recovery.session_us missed a recovery"
         assert set(jdump["sites"]) == set(METRIC_SITES)
         st.close()
 

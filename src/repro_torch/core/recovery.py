@@ -18,10 +18,13 @@ from concurrent.futures import ThreadPoolExecutor, wait
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Set
 
+import numpy as np
+import torch
+
 from repro_torch.core.cos import COS
 from repro_torch.core.faults import RetryPolicy
 from repro_torch.core.insertion_log import InsertionLog, Piggyback
-from repro_torch.core.payload import to_device
+from repro_torch.core.payload import as_u8
 from repro_torch.core.sms import SMS, Slab
 
 
@@ -61,6 +64,7 @@ class RecoveryManager:
         self.sms = sms
         # the slabs' device: COS downloads cross host-to-device into it
         self.device = device
+        self._pinned = torch.device(device).type == "cuda"
         self.cos = cos
         # unified retry policy (repro_torch.core.faults) for recovery-time COS
         # downloads: a recovery session racing a transient COS blip must
@@ -98,6 +102,18 @@ class RecoveryManager:
     def _now(self) -> float:
         return self.clock.now() if self.clock is not None \
             else time.monotonic()
+
+    def counters(self) -> Dict[str, int]:
+        """The integer counts of `stats`, named as the store exports its
+        counters, read in one pass under the lock (a session adds its
+        chunks and bytes together)."""
+        with self._lock:
+            s = self.stats
+            return {"recovery_detections": s.detections,
+                    "recovery_local": s.local_recoveries,
+                    "recovery_parallel": s.parallel_recoveries,
+                    "recovery_chunks": s.chunks_recovered,
+                    "recovery_bytes": s.bytes_recovered}
 
     def shutdown(self) -> None:
         """Release the recovery worker pool. Without this every store
@@ -181,8 +197,25 @@ class RecoveryManager:
                 # readers fall back to EC reconstruction meanwhile
                 continue
             if data is not None:
-                out[key] = to_device(data, self.device)
+                out[key] = self._upload(data)
         return out
+
+    def _upload(self, data) -> torch.Tensor:
+        """A downloaded chunk as a flat uint8 tensor on the slabs' device.
+        Bound for the card, a host chunk is first copied into pinned
+        memory (a copy that releases the GIL), and its upload is a DMA
+        queued on the default stream, so the worker goes on to its next
+        chunk meanwhile. From pageable memory the CUDA runtime would stage
+        the copy itself and hold the worker until it ended. The caching
+        host allocator keeps the pinned block until the DMA has read it;
+        the GETs that read the chunk are queued after it on the default
+        stream, which every thread of the store uses."""
+        src = as_u8(data)
+        if not self._pinned or src.device.type != "cpu":
+            return src.to(self.device)
+        pin = torch.empty(src.numel(), dtype=torch.uint8, pin_memory=True)
+        np.copyto(pin.numpy(), src.numpy())
+        return pin.to(self.device, non_blocking=True)
 
     def recover_local(self, slab: Slab) -> int:
         """The failed instance replays its manifest and restores every

@@ -1130,12 +1130,20 @@ class InfiniStore:
             self._recover(fid)
 
     def _recover(self, fid: int) -> None:
+        obs = self._obs
+        with (obs.span("recovery.session", fid=fid)
+              if obs is not None else NOOP_CM) as span:
+            self._recover_impl(fid)
+        if obs is not None and span is not None:
+            # detection to service resumption: the span's own length
+            obs.record("recovery.session_us", span.dur_s * 1e6)
+
+    def _recover_impl(self, fid: int) -> None:
         slab = self.sms.get(fid)
         view = self.daemon_view[fid]
         candidates = [f for f in self.sms.slabs
                       if self.window.state_of_function(f)
                       == BucketState.ACTIVE]
-        t0 = self.clock.now()
         if self.recovery.needs_parallel(slab, view):
             session = self.recovery.recover_parallel(slab, candidates)
             nbytes = sum(len(v) for v in session.recovered.values())
@@ -1150,7 +1158,6 @@ class InfiniStore:
             self.ledger.invoke("recovery", gb=slab.capacity / 1024**3,
                                seconds=self.cfg.busy_base_s
                                + n * self.cfg.busy_per_byte_s * 1024)
-        del t0
 
     # ------------------------------------------------------------------
     # PUT (Appendix A left + §5.3.1/§5.3.2)
@@ -2544,14 +2551,17 @@ class InfiniStore:
     def snapshot_metrics(self) -> Dict:
         """The unified observability export: latency histograms with
         p50/p99/p999, recent spans, flight-recorder events, recovered
-        forensics, plus the store counters (one `as_dict` pass). With no
+        forensics, plus the store counters (one `as_dict` pass) and the
+        recovery manager's (`recovery_*`: detections, local and parallel
+        sessions, chunks and bytes restored). With no
         (or a disabled) plane attached only the counters carry data —
         same shape either way, so exporters need no special case."""
         plane = self._obs
         snap = dict(plane.snapshot()) if plane is not None \
             else {"enabled": False, "histograms": {}, "spans": [],
                   "events": [], "forensics": []}
-        snap["counters"] = self.stats.as_dict()
+        snap["counters"] = {**self.stats.as_dict(),
+                            **self.recovery.counters()}
         return snap
 
     def dump_metrics(self, path: str) -> str:

@@ -25,6 +25,7 @@ HISTOGRAM_SITES = frozenset({
     "get.decode_batch_us",         # one ready-order decode_many batch
     "daemon.queue_wait_us",        # a daemon task's wait: submit -> start
     "daemon.get_us",               # daemon host time of one GET batch
+    "recovery.session_us",         # one _recover call: detection to resumption
     "wb.persist_us",               # one background COS writeback PUT
     "rpc.roundtrip_us",            # parent->worker RPC, send to reply
     "transport.heartbeat_age_us",  # pong age sampled at each heartbeat tick
@@ -43,6 +44,7 @@ SPAN_SITES = frozenset({
     "get.cos_fallback",            # demand COS chunk fetch (I/O executor)
     "get.decode",                  # ready-order decode_many batch
     "wb.persist",                  # background COS write of one chunk
+    "recovery.session",            # one _recover call: detection to resumption
     "journal.append",              # one spill-journal record build+write
     "journal.sync",                # spill-journal durability barrier
 })
@@ -71,6 +73,7 @@ METRIC_SITES = frozenset({
     "get.decode_batch_us",
     "daemon.queue_wait_us",
     "daemon.get_us",
+    "recovery.session_us",
     "wb.persist_us",
     "rpc.roundtrip_us",
     "transport.heartbeat_age_us",
@@ -85,6 +88,7 @@ METRIC_SITES = frozenset({
     "get.cos_fallback",
     "get.decode",
     "wb.persist",
+    "recovery.session",
     "journal.append",
     "journal.sync",
     "store.open",
